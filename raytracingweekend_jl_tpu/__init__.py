@@ -1,4 +1,4 @@
-"""raytracingweekend_jl_tpu — a TPU-native differentiable path-tracing framework.
+"""raytracingweekend_jl_tpu — a differentiable path-tracing framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 claforte/RayTracingWeekend.jl (the reference, surveyed in SURVEY.md): sphere

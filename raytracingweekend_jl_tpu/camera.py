@@ -7,7 +7,7 @@ lookfrom/lookat/vup/vfov/aspect/aperture/focus_dist, and ray directions
 normalised at creation so the intersection sweep can exploit ``a == 1``
 (reference: src/hit.jl:14-15).
 
-The TPU difference: ``get_rays`` is *batched* — it maps whole ``[R]`` arrays of
+The array difference: ``get_rays`` is *batched* — it maps whole ``[R]`` arrays of
 film coordinates plus an ``[R,2]`` lens sample to ``[R,3]`` origin/direction
 planes in one fused XLA computation, instead of one ray at a time.
 """

@@ -16,7 +16,7 @@ from .utils.config import RenderConfig, CAMERA_PRESETS
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="raytracingweekend_jl_tpu",
-                                description="TPU-native differentiable path tracer")
+                                description="differentiable JAX path tracer")
     from .models.scenes import ALL_SCENES
     d = RenderConfig()
     p.add_argument("--scene", default=d.scene, choices=sorted(ALL_SCENES),
@@ -36,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "RenderConfig.compact)")
     p.add_argument("--no-compact", dest="no_compact", action="store_true",
                    help="deprecated alias (compaction is already off by "
-                        "default); kept so pre-round-2 invocations still parse")
+                        "default); kept so older invocations still parse")
     p.add_argument("--no-persistent", action="store_true",
                    help="disable the persistent-wavefront integrator")
     p.add_argument("--rays-per-pass", type=int, default=d.rays_per_pass)
@@ -117,8 +117,8 @@ def run(cfg: RenderConfig) -> dict:
     phases = None
     if cfg.multihost or cfg.mesh_tiles * cfg.mesh_samples > 1:
         # ALL sharded renders (multihost or single-process mesh), plain or
-        # spp-chunk-checkpointed — the branches COMPOSE (round-4 verdict
-        # #3: a pod render must both shard and resume).
+        # spp-chunk-checkpointed — the branches COMPOSE (a large
+        # render must both shard and resume).
         import jax
         from .parallel import multihost
         from .parallel.shard import render_radiance_sharded
@@ -129,7 +129,7 @@ def run(cfg: RenderConfig) -> dict:
                 if multihost.cluster_env_hint():
                     # A real multi-process launch that fails to connect must
                     # NOT degrade: N disconnected processes would each render
-                    # the full image and race on the same output (ADVICE r3).
+                    # the full image and race on the same output.
                     raise SystemExit(
                         "multihost init failed on a detected cluster launch: "
                         f"{e!r}") from e

@@ -373,7 +373,7 @@ def render_radiance_edge(scene: Scene, cam, image_width: int,
     if pixel_chunk is None or pixel_chunk >= n_pix:
         if remat_chunks and n_pix > (1 << 16):
             # Silently no-opping would hand the caller the exact OOM the
-            # flag exists to prevent (round-5 review): one chunk = one
+            # flag exists to prevent: one chunk = one
             # checkpoint region = the whole forward's residuals anyway.
             raise ValueError(
                 "remat_chunks=True needs pixel_chunk < n_pix to have any "
@@ -407,7 +407,7 @@ def render_radiance_edge(scene: Scene, cam, image_width: int,
         # lax.scan over checkpointed equal-size chunks: SEQUENTIAL by
         # construction, so the backward holds one chunk's recompute region
         # at a time (independent checkpoint calls were measured to
-        # co-schedule: 35.6 GiB compile-time HBM at 960x540x8).
+        # co-schedule, holding every chunk's recompute region at once).
         pc = pixel_chunk
         n_chunks = -(-n_pix // pc)
         pad = n_chunks * pc - n_pix

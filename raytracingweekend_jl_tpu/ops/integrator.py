@@ -3,7 +3,7 @@
 The reference's ``ray_color`` is a *recursive* per-ray function: miss → sky,
 hit → scatter and recurse with multiplied attenuation, depth 16 then black
 (reference: src/ray_color.jl:14-38). Recursion is hostile to XLA; the
-TPU-native integrator is the standard wavefront rewrite: a ``lax.fori_loop``
+integrator here is the standard wavefront rewrite: a ``lax.fori_loop``
 over bounces carrying SoA per-ray state
 ``(origin, direction, throughput, radiance, alive)`` with masked updates:
 
@@ -18,7 +18,7 @@ within ``max_depth`` scatters — precisely what the loop accumulates.
 
 For reverse-mode AD the loop body is wrapped in ``jax.checkpoint`` so the
 backward sweep rematerialises per-bounce state instead of stashing all 16
-bounce frontiers in HBM.
+bounce frontiers in device memory.
 """
 
 from __future__ import annotations
@@ -34,85 +34,47 @@ from .intersect import intersect_spheres, DEFAULT_TMIN, BIG
 from .materials import scatter, slot_keys
 
 
-def _pick_intersector(use_pallas, fused_attrs: bool = False):
+def _pick_intersector(use_pallas: bool | None = None):
     """Resolve the intersection backend as a function returning
-    ``(HitResult, attrs-or-None)``.
+    ``(HitResult, None)`` (the second slot is the pre-fetched attribute
+    tuple ``scatter`` accepts; no sweep here fetches attributes).
 
-    Default on TPU: the v1 Pallas sweep kernel + the one-hot MXU attribute
-    fetch in `scatter` — measured fastest (the v2 fused-attr kernel's ~10
-    running-selects per sphere iteration cost more than the one-hot matmul
-    they replace: 6.5 vs 7.4 Mpaths/s persistent). ``fused_attrs=True`` picks
-    the v2 kernel (fewer HBM intermediates; useful under memory pressure).
-    CPU: the XLA sweep with plain gathers. All variants are differentiable.
-    Float64 rays auto-route to the XLA sweep (the Pallas kernels are
-    f32-only by design; f64 is the oracle/precision-anchor path — it must
-    work on the device too, reference src/proto/proto.jl:15).
+    ``use_pallas=None`` asks :func:`utils.platform.use_sweep_kernel`, the one
+    place that decides whether the Pallas sweep kernel runs; True/False pin
+    it. Float64 rays always take the XLA sweep: the kernel is f32 by design,
+    and f64 is the oracle/precision-anchor path (reference
+    src/proto/proto.jl:15) — a dtype route, not a fallback. All variants are
+    differentiable.
     """
     if use_pallas is None:
-        # Mosaic kernels lower only on TPU; GPU/other backends take the
-        # XLA sweep (round-4 review).
-        use_pallas = jax.default_backend() == "tpu"
+        from ..utils.platform import use_sweep_kernel
+        use_pallas = use_sweep_kernel()
     if use_pallas:
-        def dtype_dispatch(kern):
-            def isect(org, d, scene, tmin):
-                if org.dtype == jnp.float64:
-                    return intersect_spheres(org, d, scene, tmin=tmin), None
-                return kern(org, d, scene, tmin)
-            return isect
-
-        if fused_attrs:
-            from .pallas.intersect_kernel import intersect_fetch_pallas
-
-            def pallas_fetch_isect(org, d, scene, tmin):
-                return intersect_fetch_pallas(org, d, scene, tmin=tmin)
-
-            return dtype_dispatch(pallas_fetch_isect)
-
         from .pallas.intersect_kernel import intersect_spheres_pallas
 
         def pallas_isect(org, d, scene, tmin):
+            if org.dtype == jnp.float64:
+                return intersect_spheres(org, d, scene, tmin=tmin), None
             return intersect_spheres_pallas(org, d, scene, tmin=tmin), None
 
-        return dtype_dispatch(pallas_isect)
+        return pallas_isect
 
     def xla_isect(org, d, scene, tmin):
         return intersect_spheres(org, d, scene, tmin=tmin), None
 
     return xla_isect
 
+
 #: Reference default bounce depth (src/ray_color.jl:14); 4 is insufficient for
 #: hollow glass (README.md:208-210).
 DEFAULT_MAX_DEPTH = 16
 
 
-def _persistent_base_seed(key: jax.Array, sample_offset) -> jnp.ndarray:
-    """Seed for the in-kernel hardware PRNG of the persistent Pallas paths.
-
-    ``sample_offset`` (the chunk's first global sample id) is folded into the
-    key so spp-chunked rendering (utils/checkpoint.render_checkpointed) and
-    sample-axis sharding draw *decorrelated* streams per chunk — with a plain
-    key-sum seed every chunk would restart the identical per-(block, lane,
-    iteration) uniform stream and correlate its samples.
-    """
-    off = jnp.asarray(sample_offset, jnp.int32)
-    if jnp.issubdtype(key.dtype, jax.dtypes.prng_key):
-        folded = jax.random.fold_in(key, off)
-        return jnp.sum(jax.random.key_data(folded).astype(jnp.int32))
-    if key.ndim:
-        # Raw uint32[2] threefry key — the default render(seed=N) path
-        # (jax.random.PRNGKey returns raw keys). This branch used to return
-        # only sample_offset, silently dropping ALL key entropy: every
-        # persistent TPU render drew identical in-kernel scatter/jitter
-        # streams regardless of seed (round-4 review).
-        folded = jax.random.fold_in(key, off)
-        return jnp.sum(folded.astype(jnp.int32))
-    return jnp.asarray(key, jnp.int32) + off
-
 def _check_film(f32_w: float, f32_h: float) -> None:
-    """The persistent renderers regenerate samples in-kernel and need the
-    film size for jitter scaling; the 0.0 legacy defaults guaranteed NaN
-    rays for every regenerated sample (1/0 jitter scale) instead of an
-    error (round-4 review). Fail loudly at trace time."""
+    """The persistent renderer regenerates samples in place and needs the
+    film size for jitter scaling; the 0.0 defaults would give NaN rays for
+    every regenerated sample (1/0 jitter scale) instead of an error. Fail
+    loudly at trace time."""
     if not (f32_w > 0 and f32_h > 0):
         raise ValueError(
             f"f32_w/f32_h must be the positive film size in pixels, got "
@@ -134,14 +96,11 @@ def skycolor(direction: jnp.ndarray) -> jnp.ndarray:
 
 
 @partial(jax.jit, static_argnames=("max_depth", "tmin", "remat", "keyed",
-                                   "use_pallas", "fused_attrs", "remat_policy",
-                                   "tile_skip"))
+                                   "use_pallas", "tile_skip"))
 def trace(scene: Scene, origin: jnp.ndarray, direction: jnp.ndarray,
           key: jax.Array, max_depth: int = DEFAULT_MAX_DEPTH,
           tmin: float = DEFAULT_TMIN, remat: bool = False,
           keyed: bool = False, use_pallas: bool | None = None,
-          fused_attrs: bool = False,
-          remat_policy: str | None = None,
           tile_skip: int = 0) -> jnp.ndarray:
     """Trace ``R`` primary rays to radiance ``[R,3]``.
 
@@ -153,14 +112,7 @@ def trace(scene: Scene, origin: jnp.ndarray, direction: jnp.ndarray,
       remat: checkpoint the bounce body (use True under ``grad``).
       keyed: per-ray slot-keyed RNG (position-independent draws; bit-matches
         ``trace_compacted``; slightly more expensive than positional draws).
-      fused_attrs: use the v2 sweep kernel that fetches the winning sphere's
-        attributes in the sweep loop (and scatter-adds their cotangents in its
-        analytic VJP) instead of the post-sweep one-hot MXU fetch. Slightly
-        slower forward-only; a candidate win under ``grad`` where the one-hot
-        otherwise appears in forward, transpose, AND remat recompute.
-      remat_policy: checkpoint policy name when ``remat`` — ``"dots"`` saves
-        MXU outputs (the one-hot attr rows) so the backward sweep does not
-        recompute them; None rematerialises everything.
+      use_pallas: pin the sweep kernel on/off (None: platform default).
       tile_skip: when > 0, the wavefront is processed in tiles of this many
         rays, each bounce guarded by a per-tile scalar ``lax.cond`` on an
         any-alive reduction — fully-dead tiles (pixel-coherent sky regions
@@ -179,7 +131,7 @@ def trace(scene: Scene, origin: jnp.ndarray, direction: jnp.ndarray,
     dtype = origin.dtype
     R = origin.shape[0]
     slots = jnp.arange(R, dtype=jnp.int32) if keyed else None
-    intersect = _pick_intersector(use_pallas, fused_attrs=fused_attrs)
+    intersect = _pick_intersector(use_pallas)
 
     def bounce_math(org, d, thr, rad, alive, res, attrs, key_b, rk):
         # Miss: accumulate sky once, then the ray dies
@@ -251,10 +203,7 @@ def trace(scene: Scene, origin: jnp.ndarray, direction: jnp.ndarray,
         R_run = R
 
     if remat:
-        policy = None
-        if remat_policy == "dots":
-            policy = jax.checkpoint_policies.dots_with_no_batch_dims_saveable
-        body = jax.checkpoint(body, prevent_cse=False, policy=policy)
+        body = jax.checkpoint(body, prevent_cse=False)
 
     init = (origin, direction,
             jnp.ones((R_run, 3), dtype),   # throughput
@@ -398,8 +347,8 @@ def persistent_render_sum(scene: Scene, cam, u: jnp.ndarray, v: jnp.ndarray,
 
     The fixed-depth wavefront (:func:`trace`) wastes ~4/5 of its sweeps on
     dead lanes (flagship mean path length 3.15 of 16 bounces), and generic
-    compaction pays more in sort/copy traffic than it recovers. This is the
-    TPU-shaped fix: every lane is *pinned to its pixel* and, the moment its
+    compaction pays more in sort/copy traffic than it recovers. The fix here:
+    every lane is *pinned to its pixel* and, the moment its
     ray terminates (sky hit or depth exhaustion), the SAME lane immediately
     starts the NEXT SAMPLE of the SAME pixel — no sort, no gather/scatter, no
     cross-lane communication, and the lane's radiance accumulator already is
@@ -495,244 +444,6 @@ def persistent_render_sum(scene: Scene, cam, u: jnp.ndarray, v: jnp.ndarray,
 
     st = jax.lax.while_loop(cond, body, init)
     return st[3]
-
-
-@partial(jax.jit, static_argnames=("n_samples", "max_depth", "tmin",
-                                   "f32_w", "f32_h", "interpret"))
-def persistent_render_sum_fused(scene: Scene, cam, u: jnp.ndarray,
-                                v: jnp.ndarray, key: jax.Array, n_samples: int,
-                                sample_offset, max_depth: int = DEFAULT_MAX_DEPTH,
-                                tmin: float = DEFAULT_TMIN, f32_w: float = 0.0,
-                                f32_h: float = 0.0,
-                                interpret: bool = False) -> jnp.ndarray:
-    """Persistent renderer with the post-sweep body fused into ONE Pallas pass
-    (ops/pallas/shade_kernel.py): sky + shading + RNG + regeneration + state
-    update read and write the wavefront exactly once per bounce. Semantics
-    identical to :func:`persistent_render_sum`; RNG streams differ (TPU
-    hardware PRNG, positional = slot-keyed here since lanes never move), so
-    images agree statistically and RNG-free paths agree exactly.
-    """
-    from ..camera import make_rays
-    from .sampling import concentric_disk_map, per_ray_uniforms
-    from .pallas.shade_kernel import shade_and_regen, pack_camera_consts
-    from .materials import fetch_attr_planes
-    from .. import rng as rngmod
-
-    if max_depth <= 0 or n_samples <= 0:
-        return jnp.zeros((u.shape[0], 3), u.dtype)
-
-    dtype = u.dtype
-    R = u.shape[0]
-    slots = jnp.arange(R, dtype=jnp.int32)
-    intersect = _pick_intersector(None if not interpret else False)
-    key_cam = rngmod.purpose_key(key, rngmod.PIXEL_JITTER)
-    cam_consts = pack_camera_consts(cam, int(f32_w), int(f32_h))
-
-    # Winning-attr matrix for the one-hot row fetch (canonical [N, 10]
-    # ABI, materials.attr_mat).
-    from .materials import attr_mat as _mk_attr_mat
-    attr_mat = _mk_attr_mat(scene)
-
-    # Initial rays: threefry-keyed by (slot, sample) like the XLA persistent
-    # path — only the regenerated samples use the in-kernel PRNG.
-    def fold2(base, a, b_):
-        k = jax.vmap(jax.random.fold_in, (None, 0))(base, a)
-        return jax.vmap(jax.random.fold_in)(k, b_)
-
-    sample_ids = jnp.full((R,), sample_offset, jnp.int32)
-    keys0 = fold2(key_cam, slots, sample_ids)
-    u4 = per_ray_uniforms(keys0, 4, dtype=dtype)
-    jit_uv = jnp.where((sample_ids == 0)[:, None], 0.0,
-                       u4[:, 0:2] * jnp.asarray([1.0 / f32_w, 1.0 / f32_h], dtype))
-    disk = concentric_disk_map(u4[:, 2:4] * 2.0 - 1.0)
-    org, d = make_rays(cam, u + jit_uv[:, 0], v + jit_uv[:, 1], disk)
-
-    state = (org[:, 0], org[:, 1], org[:, 2], d[:, 0], d[:, 1], d[:, 2],
-             jnp.ones((R,), dtype), jnp.ones((R,), dtype), jnp.ones((R,), dtype),
-             jnp.zeros((R,), dtype), jnp.zeros((R,), dtype), jnp.zeros((R,), dtype),
-             jnp.zeros((R,), jnp.int32), sample_ids, jnp.ones((R,), jnp.int32))
-
-    last_sample = sample_offset + n_samples - 1
-    _check_film(f32_w, f32_h)
-    base_seed = _persistent_base_seed(key, sample_offset)
-
-    def cond(st):
-        state, it = st
-        return jnp.any(state[14] != 0) & (it < n_samples * max_depth)
-
-    def body(st):
-        state, it = st
-        o = jnp.stack(state[0:3], axis=-1)
-        dd = jnp.stack(state[3:6], axis=-1)
-        res, _ = intersect(o, dd, scene, tmin)
-        attrs10t = fetch_attr_planes(res.index, attr_mat, scene.n_spheres)
-        rng_u9 = None
-        if interpret:
-            # The hardware PRNG has no CPU lowering; feed threefry uniforms.
-            rng_u9 = jax.random.uniform(
-                jax.random.fold_in(jax.random.fold_in(key, sample_offset), it),
-                (9, R))
-        state = shade_and_regen(state, res.t, attrs10t, u, v, cam_consts,
-                                base_seed + it, last_sample, max_depth, tmin,
-                                interpret=interpret, rng_u9=rng_u9)
-        return state, it + 1
-
-    (state, _) = jax.lax.while_loop(cond, body, (state, jnp.int32(0)))
-    return jnp.stack(state[9:12], axis=-1)
-
-
-@partial(jax.jit, static_argnames=("n_samples", "max_depth", "tmin",
-                                   "f32_w", "f32_h", "k", "interpret",
-                                   "sample_groups"))
-def persistent_render_sum_strided(scene: Scene, cam, u: jnp.ndarray,
-                                  v: jnp.ndarray, key: jax.Array,
-                                  n_samples: int, sample_offset,
-                                  max_depth: int = DEFAULT_MAX_DEPTH,
-                                  tmin: float = DEFAULT_TMIN,
-                                  f32_w: float = 0.0, f32_h: float = 0.0,
-                                  k: int = 8,
-                                  interpret: bool = False,
-                                  pixel_start=0,
-                                  sample_groups: int = 1) -> jnp.ndarray:
-    """Load-balanced persistent renderer: each lane serves ``k`` pixels spaced
-    ``R_lanes`` apart (different image rows), switching pixels in place when
-    one finishes its samples — the straggler fix for pixel-pinned lanes (see
-    _shade_strided_kernel).
-
-    Renders the contiguous row-major pixel range ``[pixel_start,
-    pixel_start + len(u))`` of a ``W x H`` image — ``pixel_start=0`` with the
-    full pixel count is the single-chip flagship path; nonzero offsets are the
-    shard/chunk tiles (film coordinates are recomputed from pixel ids, so
-    ``u``/``v`` only fix the tile size and dtype). Lanes whose range extends
-    past ``W*H`` (driver padding) start inactive and contribute zeros. RNG for
-    strip-0 initial samples is threefry keyed by *global* pixel id; in-kernel
-    draws (scatter, strip>=1 starts, regenerated samples) are positional, so
-    across different tilings images agree exactly on RNG-free paths at k=1
-    and statistically otherwise (tests/test_shade_kernel.py pixel_start
-    suite).
-    """
-    from .pallas.shade_kernel import (shade_strided_step, pack_camera_consts,
-                                      SHADE_ROWS)
-    from .pallas.intersect_kernel import LANES
-    from .materials import fetch_attr_planes
-
-    if max_depth <= 0 or n_samples <= 0:
-        return jnp.zeros((u.shape[0], 3), u.dtype)
-
-    m = sample_groups
-    if m > 1 and k != 1:
-        raise ValueError("sample_groups > 1 requires k == 1 (lanes own "
-                         "(pixel, sample-slice) units, strips disabled)")
-    if n_samples % m:
-        raise ValueError(f"sample_groups={m} must divide n_samples={n_samples}")
-
-    dtype = u.dtype
-    W, H = int(f32_w), int(f32_h)
-    n_pix = u.shape[0]
-    r_lanes = -(-n_pix // k) * m
-    rows = -(-(-(-r_lanes // LANES)) // SHADE_ROWS) * SHADE_ROWS
-    lanes_padded = rows * LANES
-
-    pixel_start = jnp.asarray(pixel_start, jnp.int32)
-    p_end = jnp.minimum(pixel_start + n_pix, W * H)
-    cam_consts = pack_camera_consts(cam, W, H)
-    geom = jnp.stack([jnp.int32(W), jnp.int32(H), jnp.int32(r_lanes % W),
-                      jnp.int32(r_lanes // W), p_end])
-
-    def pad_plane(x):
-        return jnp.pad(x, (0, lanes_padded - r_lanes)).reshape(rows, LANES)
-
-    lane = jnp.arange(r_lanes, dtype=jnp.int32)
-    if m > 1:
-        # Sample-folded layout (small images): lane g*n_pix+p serves pixel p,
-        # samples [offset + g*spg, +spg) — iterations drop from ~spp*depth to
-        # ~(spp/m)*depth, the latency fix for overhead-bound small configs.
-        spg = n_samples // m
-        pid0 = pixel_start + lane % n_pix
-        sample_ids = sample_offset + (lane // n_pix) * spg
-        lane_lim = sample_ids + spg - 1
-    else:
-        spg = n_samples
-        pid0 = pixel_start + lane
-        sample_ids = jnp.full((r_lanes,), sample_offset, jnp.int32)
-        lane_lim = jnp.full((r_lanes,), sample_offset + n_samples - 1,
-                            jnp.int32)
-    px0 = pid0 % W
-    py0 = pid0 // W
-    active0 = (pid0 < p_end).astype(jnp.int32)
-
-    # Initial rays (strip 0) via the threefry path, keyed by (global pixel,
-    # sample) — tile-invariant streams.
-    from ..camera import make_rays
-    from .sampling import concentric_disk_map, per_ray_uniforms
-    from .. import rng as rngmod
-    key_cam = rngmod.purpose_key(key, rngmod.PIXEL_JITTER)
-    keys0 = jax.vmap(jax.random.fold_in)(
-        jax.vmap(jax.random.fold_in, (None, 0))(key_cam, pid0),
-        sample_ids)
-    u4 = per_ray_uniforms(keys0, 4, dtype=dtype)
-    jit_uv = jnp.where((sample_ids == 0)[:, None], 0.0,
-                       u4[:, 0:2] * jnp.asarray([1.0 / f32_w, 1.0 / f32_h], dtype))
-    disk = concentric_disk_map(u4[:, 2:4] * 2.0 - 1.0)
-    u_lane = (px0.astype(dtype) + 1.0) / f32_w
-    v_lane = (jnp.asarray(H - 1, dtype) - py0.astype(dtype)) / f32_h
-    org, d = make_rays(cam, u_lane + jit_uv[:, 0], v_lane + jit_uv[:, 1], disk)
-
-    ones = jnp.ones((r_lanes,), dtype)
-    zer = jnp.zeros((r_lanes,), dtype)
-    izer = jnp.zeros((r_lanes,), jnp.int32)
-    state_flat = ([org[:, 0], org[:, 1], org[:, 2], d[:, 0], d[:, 1], d[:, 2],
-                   ones, ones, ones, zer, zer, zer,
-                   izer, sample_ids, izer, px0, py0,
-                   active0, lane_lim]
-                  + [zer] * (3 * k))
-    state = tuple(pad_plane(x) for x in state_flat)
-
-    from .materials import attr_mat as _mk_attr_mat
-    attr_mat = _mk_attr_mat(scene)
-
-    intersect = _pick_intersector(None if not interpret else False)
-    last_sample = sample_offset + n_samples - 1
-    _check_film(f32_w, f32_h)
-    base_seed = _persistent_base_seed(key, sample_offset)
-
-    def cond(st):
-        state, it = st
-        return jnp.any(state[17] != 0) & (it < k * spg * max_depth + max_depth)
-
-    def body(st):
-        state, it = st
-        o = jnp.stack([p.reshape(-1)[:r_lanes] for p in state[0:3]], axis=-1)
-        dd = jnp.stack([p.reshape(-1)[:r_lanes] for p in state[3:6]], axis=-1)
-        res, _ = intersect(o, dd, scene, tmin)
-        attrs10t = fetch_attr_planes(res.index, attr_mat, scene.n_spheres)
-        rng_u9 = None
-        if interpret:
-            rng_u9 = jax.random.uniform(
-                jax.random.fold_in(jax.random.fold_in(key, sample_offset), it),
-                (9, rows, LANES))
-        state = shade_strided_step(state, res.t, attrs10t, cam_consts, geom,
-                                   base_seed + it, last_sample, sample_offset,
-                                   max_depth, k, interpret=interpret,
-                                   rng_u9=rng_u9)
-        return state, it + 1
-
-    (state, _) = jax.lax.while_loop(cond, body, (state, jnp.int32(0)))
-
-    chans = []
-    if m > 1:
-        # Sample-folded: lane g*n_pix+p accumulated pixel p's group g into
-        # buf strip 0 — sum the groups.
-        for ch in range(3):
-            buf = state[19 + ch].reshape(-1)[:r_lanes]
-            chans.append(buf.reshape(m, n_pix).sum(axis=0))
-    else:
-        # Strided: pixel p = j + c*lanes_per_strip lives in buf strip c.
-        for ch in range(3):
-            parts = [state[19 + 3 * c + ch].reshape(-1)[:r_lanes]
-                     for c in range(k)]
-            chans.append(jnp.concatenate(parts)[:n_pix])
-    return jnp.stack(chans, axis=-1)
 
 
 @partial(jax.jit, static_argnames=("max_depth", "tmin", "tile"))

@@ -3,11 +3,11 @@
 The reference intersects one ray against one sphere at a time with a half-b
 quadratic exploiting unit ray directions (``a == 1``), then linearly scans the
 sphere list tracking the closest hit (reference: src/hit.jl:12-50). The
-TPU-native formulation computes the whole ``[R] x [N]`` sweep at once and
+array formulation computes the whole ``[R] x [N]`` sweep at once and
 reduces with a fused argmin:
 
 - the two ray⊗sphere inner products are expressed as ``[R,3] @ [3,N]``
-  contractions so XLA can put them on the MXU;
+  contractions, one XLA op each;
 - ``|oc|^2`` is expanded as ``|o|^2 - 2 o·c + (|c|^2 - r^2)`` with the
   per-sphere constant ``|c|^2 - r^2`` computed once per call — numerically
   *better* than the naive float32 ``oc·oc`` for huge ground spheres because the
@@ -71,10 +71,10 @@ def intersect_spheres(origin: jnp.ndarray, direction: jnp.ndarray, scene: Scene,
     od = jnp.sum(origin * direction, axis=-1)     # [R]  o·d
     oo = jnp.sum(origin * origin, axis=-1)        # [R]  |o|^2
 
-    # Ray⊗sphere contractions — MXU-friendly [R,3] @ [3,N]. HIGHEST precision
-    # is mandatory: the TPU default demotes dot operands to bfloat16, whose
-    # 8-bit mantissa corrupts hit distances by ~1% (visibly wrong images —
-    # caught by comparing against the Pallas kernel and CPU goldens).
+    # Ray⊗sphere contractions [R,3] @ [3,N]. HIGHEST precision is mandatory:
+    # a default-precision dot may demote its operands (bfloat16 or TF32),
+    # whose short mantissa corrupts hit distances by ~1% (visibly wrong
+    # images against the sweep kernel and the CPU goldens).
     cd = jnp.dot(direction, centers.T, precision=jax.lax.Precision.HIGHEST)
     oc = jnp.dot(origin, centers.T, precision=jax.lax.Precision.HIGHEST)
 

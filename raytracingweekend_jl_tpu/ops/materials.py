@@ -2,7 +2,7 @@
 
 The reference dispatches ``scatter`` dynamically on the material type of the
 hit object (reference: src/material.jl:13-53). With only three material kinds,
-the TPU-native form computes all three candidate scatter directions for every
+the array form here computes all three candidate scatter directions for every
 ray with shared random draws and blends by the integer material code — fully
 branch-free, vectorised, and differentiable through every continuous quantity
 (normals, hit points, albedos, fuzz, Schlick reflectance), with the discrete
@@ -13,7 +13,6 @@ matching the straight-through approach of differentiable ray tracers
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
@@ -63,108 +62,51 @@ def slot_keys(key: jax.Array, slots: jnp.ndarray) -> jax.Array:
     return jax.vmap(jax.random.fold_in, (None, 0))(key, slots)
 
 
-def attr_mat(scene) -> jnp.ndarray:
-    """THE canonical per-sphere attribute matrix ``[N, 10]`` — column order
-    ``center.xyz | radius | albedo.rgb | fuzz | ir | mat`` is a cross-kernel
-    ABI shared by the shade kernels' attribute unpack, the record/replay
-    adjoint (grad_kernel acx..amt), the fused-record in-kernel select, and
-    _fused_bwd's g_attr column slicing. Change it in exactly one place
-    (here) or gradients/attributes silently corrupt (round-4 review: four
-    drifting inline copies consolidated)."""
-    f32 = jnp.float32
-    return jnp.concatenate([
-        scene.center.astype(f32), scene.radius[:, None].astype(f32),
-        scene.albedo.astype(f32), scene.fuzz[:, None].astype(f32),
-        scene.ir[:, None].astype(f32), scene.mat[:, None].astype(f32)],
-        axis=1)
+def sum_rows(index: jnp.ndarray, rows: jnp.ndarray, n: int) -> jnp.ndarray:
+    """Per-sphere sums ``out[j] = sum(rows[index == j])`` of ``[R,F]`` rows
+    into ``[n,F]``: the transpose of :func:`gather_rows`, and how every
+    per-sphere cotangent sum of the package is formed.
+
+    One ``[R,n]^T @ [R,F]`` one-hot matrix product (f32, no TF32) rather
+    than a scatter-add: on an H100 the recorded gradient step at the
+    flagship runs 3x faster with it, although a lone scatter-add of the same
+    size is not slower (PERF.md), and it is the closer of the two to float64
+    sums."""
+    onehot = (index[:, None] == jnp.arange(n, dtype=index.dtype)[None, :]
+              ).astype(rows.dtype)
+    return jax.lax.dot_general(onehot, rows, (((0,), (0,)), ((), ())),
+                               precision=jax.lax.Precision.HIGHEST)
+
+
+@jax.custom_vjp
+def gather_rows(table: jnp.ndarray, index: jnp.ndarray) -> jnp.ndarray:
+    """``table[index]`` for a small ``[N,F]`` table and ``[R]`` indices: a
+    plain gather, whose transpose is :func:`sum_rows`."""
+    return table[index]
+
+
+def _gather_rows_fwd(table, index):
+    return table[index], (table, index)
+
+
+def _gather_rows_bwd(res, g):
+    table, index = res
+    return sum_rows(index, g, table.shape[0]).astype(table.dtype), None
+
+
+gather_rows.defvjp(_gather_rows_fwd, _gather_rows_bwd)
 
 
 def gather_sphere_attrs(scene: Scene, index: jnp.ndarray, dtype):
-    """Fetch per-ray sphere attributes ``(center, radius, albedo, fuzz, ir, mat)``.
-
-    On TPU, per-ray gathers from the sphere SoA are catastrophically slow
-    (~85% of trace time measured at R=717k); the MXU-idiomatic replacement is a
-    one-hot [R,N] @ [N,F] contraction. With float32 inputs at HIGHEST matmul
-    precision the result is bit-identical to the gather (exactly one nonzero
-    partial product per output). CPU keeps the plain gather (fast there, and
-    interpreter-friendly).
-    """
-    if jax.default_backend() == "cpu":
-        return (scene.center[index].astype(dtype),
-                scene.radius[index].astype(dtype),
-                scene.albedo[index].astype(dtype),
-                scene.fuzz[index].astype(dtype),
-                scene.ir[index].astype(dtype),
-                scene.mat[index])
-
-    n = scene.n_spheres
-    rows = _onehot_rows_exact(index, attr_mat(scene), n).astype(dtype)
+    """Fetch per-ray sphere attributes ``(center, radius, albedo, fuzz, ir, mat)``
+    from the sphere SoA: one :func:`gather_rows` of the float columns
+    ``center.xyz | radius | albedo.rgb | fuzz | ir`` (a 488-row table at the
+    flagship, which stays in cache) and a plain gather of ``mat``."""
+    table = jnp.concatenate([scene.center, scene.radius[:, None], scene.albedo,
+                             scene.fuzz[:, None], scene.ir[:, None]], axis=1)
+    rows = gather_rows(table, index).astype(dtype)
     return (rows[:, 0:3], rows[:, 3], rows[:, 4:7], rows[:, 7], rows[:, 8],
-            rows[:, 9].astype(jnp.int32))
-
-
-def _bf16_split3(x: jnp.ndarray):
-    """Exact 3-way bf16 decomposition: hi + mid + lo == x bitwise for f32
-    (3x8 mantissa bits >= f32's 24). THE shared primitive behind every
-    exact one-hot MXU form — change precision here, nowhere else."""
-    hi = x.astype(jnp.bfloat16)
-    rem = x - hi.astype(jnp.float32)
-    mid = rem.astype(jnp.bfloat16)
-    lo = (rem - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, mid, lo
-
-
-def _onehot_rows_exact(index: jnp.ndarray, attr: jnp.ndarray, n: int) -> jnp.ndarray:
-    """``attr[index]`` as a single bf16 MXU pass, bit-exact for float32 attrs.
-
-    The one-hot matrix is exact in bfloat16 (entries 0/1); the float32
-    attribute matrix is split into three non-overlapping bf16 parts
-    (hi + mid + lo == attr exactly, 3x8 mantissa bits >= f32's 24) packed
-    side by side so ONE default-precision [R,N]@[N,3F] matmul covers all
-    parts; with exactly one nonzero product per output and f32 accumulation
-    the recombined rows equal the gather bitwise. This reads the [R,N]
-    one-hot once — HIGHEST-precision f32 matmuls read operands three times,
-    which dominated the shading stage at flagship wavefront sizes.
-    """
-    f = attr.shape[1]
-    packed = jnp.concatenate(_bf16_split3(attr), axis=1)  # [N, 3F] bf16
-    onehot = (index[:, None]
-              == jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)).astype(jnp.bfloat16)
-    rows3 = jnp.dot(onehot, packed, preferred_element_type=jnp.float32)
-    return rows3[:, 0:f] + rows3[:, f:2 * f] + rows3[:, 2 * f:3 * f]
-
-
-def _onehot_cols_exact(index: jnp.ndarray, attr: jnp.ndarray, n: int) -> jnp.ndarray:
-    """``attr[index].T`` (shape [F, R]) as one small-M bf16 MXU pass.
-
-    Transposed counterpart of :func:`_onehot_rows_exact` for plane-layout
-    consumers (the record/replay kernel drivers): the attribute dim (F ~ 10)
-    rides the MXU's M axis — padded to sublanes, not to a 128-wide N tile —
-    so the matmul does ~4x less array work at identical exactness (still one
-    nonzero partial product per output with f32 accumulation), and each
-    ``[F, R]`` output row slices straight into a ``[rows, LANES]`` plane
-    with no strided column gather. Used (flip-gated) by every plane-layout
-    fetch: the record/replay drivers and the persistent forward loops.
-    """
-    f = attr.shape[1]
-    packed_t = jnp.concatenate(_bf16_split3(attr), axis=1).T  # [3F, N] (tiny)
-    onehot_t = (jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
-                == index[None, :]).astype(jnp.bfloat16)  # [N, R]
-    cols3 = jax.lax.dot_general(packed_t, onehot_t, (((1,), (0,)), ((), ())),
-                                preferred_element_type=jnp.float32)
-    return cols3[0:f] + cols3[f:2 * f] + cols3[2 * f:3 * f]
-
-
-def fetch_attr_planes(index: jnp.ndarray, attr: jnp.ndarray, n: int) -> jnp.ndarray:
-    """Winner-attribute fetch in [F, R] plane-major layout (bit-exact
-    gather) — the small-M ``_onehot_cols_exact`` form. The round-3b
-    on-device A/B measured the two forms perf-neutral on the full step
-    (14.08 vs 14.16 Mpaths/s, within rerun noise) with bit-identical
-    outputs, so the structurally cheaper form (attribute dim on the MXU
-    M axis, no output transpose) is used unconditionally and the former
-    RTW_ONEHOT_NOFLIP trace-time env toggle was removed (ADVICE r3: an
-    env read inside traced code is not part of the jit cache key)."""
-    return _onehot_cols_exact(index, attr, n)
+            scene.mat[index])
 
 
 def scatter(scene: Scene, origin: jnp.ndarray, direction: jnp.ndarray,
@@ -180,8 +122,7 @@ def scatter(scene: Scene, origin: jnp.ndarray, direction: jnp.ndarray,
     keyed per ray (position-independent — required for exact compaction /
     persistent regeneration); when None, draws are positional (one shaped draw
     for the whole batch — cheapest). ``attrs``: optionally pre-fetched
-    (center, radius, albedo, fuzz, ir, mat) rows (e.g. from a fused Pallas
-    sweep), skipping the one-hot fetch.
+    (center, radius, albedo, fuzz, ir, mat) rows, skipping the gather.
     """
     dtype = origin.dtype
     one = jnp.asarray(1.0, dtype)

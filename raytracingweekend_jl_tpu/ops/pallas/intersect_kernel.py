@@ -1,22 +1,39 @@
-"""Pallas TPU kernel: fused closest-hit ray-sphere sweep.
+"""Closest-hit ray-sphere sweep as a Pallas kernel for NVIDIA Hopper
+(``backend="triton"``).
 
-The XLA path (ops/intersect.py) expresses the sweep as broadcast [R,N]
-elementwise + argmin and leans on XLA fusion. This kernel removes every [R,N]
-intermediate *by construction*: each program instance holds a (BLOCK_ROWS, 128)
-tile of ray components in VMEM registers and loops over spheres held in SMEM,
-maintaining the running (best_t, best_index) — the reference's shrinking
-``closest`` scan (src/hit.jl:38-50) vectorised over 8192 rays per step instead
-of per ray.
+The XLA path (ops/intersect.py) writes the sweep as two ``[R,3] @ [3,N]``
+contractions plus ``[R,N]`` elementwise root selection and a min/argmin over
+the sphere axis. At the flagship size (2.07 M rays x 488 spheres) each of
+those ``[R,N]`` f32 planes is about 4 GB of device memory traffic per bounce,
+for work that is pure f32 ALU reduced to one ``(t, index)`` per ray.
 
-Differentiability: the forward kernel is wrapped in ``jax.custom_vjp`` whose
-backward pass uses *implicit differentiation* of the sphere equation
-``|o + t d - c|^2 = r^2`` at the winning sphere — closed-form cotangents
+This kernel keeps everything in registers. A program owns a power-of-two
+block of rays and holds their origin, direction and running ``(t, index)``;
+a ``fori_loop`` walks the sphere table (``cx, cy, cz, |c|^2 - r^2``, about
+8 KB at the flagship, so it stays in L1) a few spheres per iteration, each
+read as a scalar that all threads share, computes every ray's candidate
+root with the same half-b quadratic as the XLA path, and merges it into the
+running pair with a strict ``<`` in ascending sphere order —
+``jnp.argmin``'s lowest-index tie rule. Each ray's reduction stays in its
+own thread, so there is no cross-lane argmin. Rays are padded to the block;
+spheres are padded to the unroll factor with entries whose ``|c|^2 - r^2``
+is ``BIG``, which can never produce a positive discriminant. Arithmetic is
+f32 throughout (no TF32: there is no matrix product). It rounds like XLA's
+elementwise form of the same expressions, not like the cuBLAS products of
+the plain path, so the two differ in the last bits (PERF.md).
+
+Differentiability: ``jax.custom_vjp`` whose backward pass is *implicit
+differentiation* of ``|o + t d - c|^2 = r^2`` at the winning sphere (plain
+JAX, O(R), no sphere sweep):
 
     dt/do = -p/(p.d),  dt/dd = -t p/(p.d),  dt/dc = p/(p.d),  dt/dr = r/(p.d)
 
-with ``p = o + t d - c`` — an O(R) backward with NO sphere sweep at all (the
-argmin choice is detached, as in the XLA path). Scene cotangents are
-scatter-added over the winning indices.
+with ``p = o + t d - c``; scene cotangents are summed per winning sphere
+by :func:`ops.materials.sum_rows`, and the argmin choice is detached, as in
+the XLA path.
+
+``interpret=True`` runs the kernel in the Pallas interpreter — the only way
+it runs without a card, and only ever an explicit argument (tests).
 """
 
 from __future__ import annotations
@@ -25,241 +42,116 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ...scene import Scene
 from ..intersect import HitResult, DEFAULT_TMIN, BIG
+from ..materials import sum_rows
 
-import os
-
-#: Rays per program instance: (BLOCK_ROWS, 128) lanes. Env-tunable for block
-#: size sweeps (RTW_BLOCK_ROWS); 64 measured best on v5e among {16, 32, 64}
-#: (83.9 vs 72.8 vs 47.9 G pairs/s at flagship wavefront size).
-BLOCK_ROWS = int(os.environ.get("RTW_BLOCK_ROWS", "64"))
-LANES = 128
-BLOCK = BLOCK_ROWS * LANES
-
-#: Block rows for the occupancy-MASKED sweep only (the record phases'
-#: sweep). Finer blocks trade dense-sweep throughput (the {16,32,64}
-#: numbers above) for skip granularity: record-phase occupancy decays
-#: 1.0 -> 0.03 across the head iterations and survivors are spatially
-#: coherent, so a smaller all-dead guard can skip work the 64-row guard
-#: cannot (round-5 campaign, GRAD_HEADROOM.md). Import-time read: one
-#: value per process (A/B in fresh processes, like RTW_DATTR_GROUP).
-MASKED_BLOCK_ROWS = int(os.environ.get("RTW_MASKED_BLOCK_ROWS",
-                                       str(BLOCK_ROWS)))
+#: Rays per program (power of two), warps per program, and spheres per
+#: iteration of the sphere loop (the table is padded to a multiple of it).
+#: Chosen on an H100 at the flagship width, where they beat a
+#: [rays, chunk] tile with an in-tile argmin (PERF.md).
+BLOCK_RAYS = 256
+NUM_WARPS = 4
+UNROLL = 4
 
 
-def _sweep_kernel(cx_ref, cy_ref, cz_ref, ck_ref,  # [N] scalar-prefetch SMEM
-                  ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,  # ray tiles
-                  t_ref, idx_ref,  # outputs
-                  *, n_spheres: int, tmin: float):
-    ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]
-    dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-
+def _sweep_kernel(cx_ref, cy_ref, cz_ref, ck_ref,
+                  ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
+                  t_ref, idx_ref, *, n_spheres: int, unroll: int,
+                  tmin: float):
+    ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]
+    dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
     od = ox * dx + oy * dy + oz * dz
     oo = ox * ox + oy * oy + oz * oz
-
     big = jnp.float32(BIG)
-    init_t = jnp.full(ox.shape, big, jnp.float32)
-    init_i = jnp.zeros(ox.shape, jnp.int32)
-
-    unroll = 8 if n_spheres % 8 == 0 else (2 if n_spheres % 2 == 0 else 1)
 
     def one(s, best_t, best_i):
-        cxs = cx_ref[s]
-        cys = cy_ref[s]
-        czs = cz_ref[s]
-        cks = ck_ref[s]
-        # half-b quadratic with a == 1 (reference: src/hit.jl:12-29), stable
-        # |oc|^2 expansion as in ops/intersect.py.
-        cd = cxs * dx + cys * dy + czs * dz
-        oc = cxs * ox + cys * oy + czs * oz
-        hb = od - cd
-        c = oo - 2.0 * oc + cks
+        # Scalar loads: every thread reads the same sphere (an L1 broadcast).
+        cx, cy, cz, ck = cx_ref[s], cy_ref[s], cz_ref[s], ck_ref[s]
+        # Half-b quadratic with a == 1 and the stable |oc|^2 expansion,
+        # term for term as ops/intersect.py (reference: src/hit.jl:12-29).
+        hb = od - (dx * cx + dy * cy + dz * cz)
+        c = oo - 2.0 * (ox * cx + oy * cy + oz * cz) + ck
         disc = hb * hb - c
-        sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-        r1 = -hb - sq
-        # near root if acceptable, else far root (src/hit.jl:22-27)
-        t = jnp.where(r1 >= tmin, r1, -hb + sq)
-        ok = (disc > 0) & (t >= tmin) & (t < best_t)
-        return jnp.where(ok, t, best_t), jnp.where(ok, s, best_i)
+        valid = disc > 0
+        sq = jnp.sqrt(jnp.where(valid, disc, 1.0))
+        near = -hb - sq
+        far = -hb + sq
+        near_ok = valid & (near >= tmin) & (near <= big)
+        far_ok = valid & (far >= tmin) & (far <= big)
+        t = jnp.where(near_ok, near, jnp.where(far_ok, far, big))
+        # Strict < in ascending sphere order: jnp.argmin's lowest-index
+        # tie rule (reference: the shrinking-closest scan, src/hit.jl:38-50).
+        better = t < best_t
+        return jnp.where(better, t, best_t), jnp.where(better, s, best_i)
 
-    def body(i, carry):
+    def body(j, carry):
         best_t, best_i = carry
-        # Python-unrolled pair: amortises loop/scalar-load overhead; the
-        # sequential updates keep results identical to the rolled loop.
         for k in range(unroll):
-            best_t, best_i = one(i * unroll + k, best_t, best_i)
+            best_t, best_i = one(j * unroll + k, best_t, best_i)
         return best_t, best_i
 
-    best_t, best_i = jax.lax.fori_loop(0, n_spheres // unroll, body,
-                                       (init_t, init_i))
-    t_ref[:] = best_t
-    idx_ref[:] = best_i
+    init = (jnp.full(ox.shape, big, jnp.float32),
+            jnp.zeros(ox.shape, jnp.int32))
+    best_t, best_i = jax.lax.fori_loop(0, n_spheres // unroll, body, init)
+    t_ref[...] = best_t
+    idx_ref[...] = best_i
 
 
-def _pad_rows(x: jnp.ndarray, rows: int) -> jnp.ndarray:
-    pad = rows * LANES - x.shape[0]
-    if pad:
-        x = jnp.pad(x, (0, pad))
-    return x.reshape(rows, LANES)
+def sphere_table(centers: jnp.ndarray, ck: jnp.ndarray, multiple: int = UNROLL):
+    """Sphere planes ``(cx, cy, cz, ck)`` padded to a multiple of
+    ``multiple``. Padding entries have ``ck = BIG``: ``c = |o|^2 - 2 o.c +
+    BIG`` makes the discriminant hugely negative, so they never win."""
+    n = centers.shape[0]
+    n_pad = -(-n // multiple) * multiple - n
+    planes = [centers[:, 0], centers[:, 1], centers[:, 2]]
+    planes = [jnp.pad(p.astype(jnp.float32), (0, n_pad)) for p in planes]
+    planes.append(jnp.pad(ck.astype(jnp.float32), (0, n_pad),
+                          constant_values=BIG))
+    return planes
 
 
-# ---------------------------------------------------------------------------
-# Occupancy-masked sweep: skip all-dead blocks
-# ---------------------------------------------------------------------------
-
-def _sweep_masked_kernel(cx_ref, cy_ref, cz_ref, ck_ref,
-                         ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                         alive_ref, t_ref, idx_ref,
-                         *, n_spheres: int, tmin: float):
-    """The flat sweep with a per-BLOCK occupancy guard: when no lane in the
-    (BLOCK_ROWS, 128) tile is alive, the whole sphere loop is skipped and the
-    outputs are filled with miss values. Camera-ray deaths are spatially
-    correlated (sky rows die at bounce 1, plain-ground rows by bounce 2-3),
-    so with row-major wavefronts the guard eliminates most of the full-width
-    sweeps the fixed-depth record forward pays after the first few bounces
-    (flagship occupancy [1, .84, .37, .22, .14, ...])."""
-    anyalive = jnp.any(alive_ref[:] != 0)
-
-    @pl.when(anyalive)
-    def _sweep_block():
-        _sweep_kernel(cx_ref, cy_ref, cz_ref, ck_ref, ox_ref, oy_ref, oz_ref,
-                      dx_ref, dy_ref, dz_ref, t_ref, idx_ref,
-                      n_spheres=n_spheres, tmin=tmin)
-
-    @pl.when(jnp.logical_not(anyalive))
-    def _skip_block():
-        t_ref[:] = jnp.full(t_ref.shape, jnp.float32(BIG))
-        idx_ref[:] = jnp.zeros(idx_ref.shape, jnp.int32)
-
-
-@partial(jax.jit, static_argnames=("tmin", "interpret"))
-def sweep_masked(origin, direction, alive, centers, radius, tmin,
-                 interpret=False):
-    """Occupancy-masked sweep over flat [R] rays; ``alive`` int32/bool [R].
-    Forward-only (no VJP): built for the record phase of the fused gradient
-    path, whose custom VJP replays the recorded t instead of differentiating
-    the sweep. Returns (t, idx) with t=BIG on dead lanes' skipped blocks."""
+@partial(jax.jit, static_argnames=("tmin", "interpret", "block", "num_warps",
+                                   "unroll"))
+def sweep_forward(origin, direction, centers, ck, tmin, interpret=False,
+                  block=BLOCK_RAYS, num_warps=NUM_WARPS, unroll=UNROLL):
+    """``(t, index)`` of the closest hit for float32 ``[R,3]`` rays; no VJP.
+    ``block`` must be a power of two."""
     R = origin.shape[0]
-    ck = jnp.sum(centers * centers, axis=-1) - radius * radius
-    n_spheres = centers.shape[0]
-    rows = -(-R // LANES)
-    rows = -(-rows // BLOCK_ROWS) * BLOCK_ROWS
-    grid = rows // BLOCK_ROWS
+    r_pad = -(-R // block) * block - R
+    rays = [jnp.pad(x, (0, r_pad)) for x in
+            (origin[:, 0], origin[:, 1], origin[:, 2],
+             direction[:, 0], direction[:, 1], direction[:, 2])]
+    spheres = sphere_table(centers, ck, unroll)
+    n_spheres = spheres[0].shape[0]
+    rp = R + r_pad
 
-    ray_planes = [
-        _pad_rows(origin[:, 0], rows), _pad_rows(origin[:, 1], rows),
-        _pad_rows(origin[:, 2], rows),
-        _pad_rows(direction[:, 0], rows), _pad_rows(direction[:, 1], rows),
-        _pad_rows(direction[:, 2], rows),
-        _pad_rows(alive.astype(jnp.int32), rows),
-    ]
-    ray_spec = pl.BlockSpec((BLOCK_ROWS, LANES), lambda i, *_refs: (i, 0),
-                            memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(grid,),
-        in_specs=[ray_spec] * 7,
-        out_specs=[ray_spec, ray_spec],
-    )
+    ray_spec = pl.BlockSpec((block,), lambda i: (i,))
+    sph_spec = pl.BlockSpec((n_spheres,), lambda i: (0,))
     t, idx = pl.pallas_call(
-        partial(_sweep_masked_kernel, n_spheres=n_spheres, tmin=tmin),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((rows, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((rows, LANES), jnp.int32)],
-        interpret=interpret,
-    )(centers[:, 0], centers[:, 1], centers[:, 2], ck, *ray_planes)
-    return t.reshape(-1)[:R], idx.reshape(-1)[:R]
-
-
-@partial(jax.jit, static_argnames=("tmin", "interpret"))
-def sweep_masked_planes(o3: tuple, d3: tuple, alive_plane, centers, radius,
-                        tmin, interpret=False):
-    """``sweep_masked`` over pre-padded [rows, LANES] planes — the layout the
-    persistent record loop already carries. Skips the flat round trip
-    (stack to [R,3] then re-plane inside the wrapper), which is pure glue at
-    record widths. Returns ``(t, idx)`` planes of the input shape."""
-    rows = o3[0].shape[0]
-    ck = jnp.sum(centers * centers, axis=-1) - radius * radius
-    n_spheres = centers.shape[0]
-    br = MASKED_BLOCK_ROWS
-    rows_p = -(-rows // br) * br  # grid must cover all rows
-    grid = rows_p // br
-
-    def padp(p):
-        if rows_p == rows:
-            return p
-        return jnp.concatenate(
-            [p, jnp.zeros((rows_p - rows, LANES), p.dtype)], axis=0)
-
-    ray_planes = [padp(p) for p in (*o3, *d3, alive_plane.astype(jnp.int32))]
-    ray_spec = pl.BlockSpec((br, LANES), lambda i, *_refs: (i, 0),
-                            memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(grid,),
-        in_specs=[ray_spec] * 7,
+        partial(_sweep_kernel, n_spheres=n_spheres, unroll=unroll, tmin=tmin),
+        grid=(rp // block,),
+        in_specs=[sph_spec] * 4 + [ray_spec] * 6,
         out_specs=[ray_spec, ray_spec],
-    )
-    t, idx = pl.pallas_call(
-        partial(_sweep_masked_kernel, n_spheres=n_spheres, tmin=tmin),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((rows_p, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((rows_p, LANES), jnp.int32)],
+        out_shape=[jax.ShapeDtypeStruct((rp,), jnp.float32),
+                   jax.ShapeDtypeStruct((rp,), jnp.int32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
-    )(centers[:, 0], centers[:, 1], centers[:, 2], ck, *ray_planes)
-    return t[:rows], idx[:rows]
-
-
-@partial(jax.jit, static_argnames=("tmin", "interpret"))
-def _sweep_forward(origin, direction, centers, ck, tmin, interpret=False):
-    R = origin.shape[0]
-    n_spheres = centers.shape[0]
-    rows = -(-R // LANES)
-    rows = -(-rows // BLOCK_ROWS) * BLOCK_ROWS
-    grid = rows // BLOCK_ROWS
-
-    ray_planes = [
-        _pad_rows(origin[:, 0], rows), _pad_rows(origin[:, 1], rows),
-        _pad_rows(origin[:, 2], rows),
-        _pad_rows(direction[:, 0], rows), _pad_rows(direction[:, 1], rows),
-        _pad_rows(direction[:, 2], rows),
-    ]
-    sphere_planes = [centers[:, 0], centers[:, 1], centers[:, 2], ck]
-
-    # Index maps under PrefetchScalarGridSpec also receive the scalar refs.
-    ray_spec = pl.BlockSpec((BLOCK_ROWS, LANES), lambda i, *_refs: (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    # Sphere SoA rides the scalar-prefetch path: 1-D arrays land in SMEM and
-    # are indexed per sphere by the sweep loop (a (1,N) SMEM BlockSpec
-    # mis-indexes beyond element 128 on real hardware).
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(grid,),
-        in_specs=[ray_spec] * 6,
-        out_specs=[ray_spec, ray_spec],
-    )
-
-    t, idx = pl.pallas_call(
-        partial(_sweep_kernel, n_spheres=n_spheres, tmin=tmin),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((rows, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((rows, LANES), jnp.int32)],
-        interpret=interpret,
-    )(*sphere_planes, *ray_planes)
-    return t.reshape(-1)[:R], idx.reshape(-1)[:R]
+        name="sphere_sweep",
+    )(*spheres, *rays)
+    return t[:R], idx[:R]
 
 
 @partial(jax.custom_vjp, nondiff_argnums=(3, 4))
 def _sweep(origin, direction, scene_params, tmin, interpret):
     centers, radius = scene_params
     ck = jnp.sum(centers * centers, axis=-1) - radius * radius
-    return _sweep_forward(origin, direction, centers, ck, tmin, interpret)
+    return sweep_forward(origin, direction, centers, ck, tmin, interpret)
 
 
 def _sweep_fwd(origin, direction, scene_params, tmin, interpret):
@@ -278,18 +170,16 @@ def _sweep_bwd(tmin, interpret, residuals, cotangents):
     p = origin + t_safe[:, None] * direction - c_sel     # surface offset vector
     pd = jnp.sum(p * direction, axis=-1)
     # Guard tangential hits (p.d == 0) and masked lanes.
-    denom = jnp.where(jnp.abs(pd) > 1e-12, pd, 1.0)
-    scale = jnp.where(hit & (jnp.abs(pd) > 1e-12), g_t / denom, 0.0)
+    ok = hit & (jnp.abs(pd) > 1e-12)
+    scale = jnp.where(ok, g_t / jnp.where(ok, pd, 1.0), 0.0)
 
     d_origin = -scale[:, None] * p
     d_direction = -(scale * t_safe)[:, None] * p
-    d_c_rows = scale[:, None] * p
-    d_r_rows = scale * r_sel
-
-    n = centers.shape[0]
-    d_centers = jnp.zeros_like(centers).at[idx].add(d_c_rows)
-    d_radius = jnp.zeros_like(radius).at[idx].add(d_r_rows)
-    return d_origin, d_direction, (d_centers, d_radius)
+    d_sph = sum_rows(idx, jnp.concatenate(
+        [scale[:, None] * p, (scale * r_sel)[:, None]], axis=1),
+        centers.shape[0])
+    return d_origin, d_direction, (d_sph[:, :3].astype(centers.dtype),
+                                   d_sph[:, 3].astype(radius.dtype))
 
 
 _sweep.defvjp(_sweep_fwd, _sweep_bwd)
@@ -299,175 +189,7 @@ def intersect_spheres_pallas(origin: jnp.ndarray, direction: jnp.ndarray,
                              scene: Scene, tmin: float = DEFAULT_TMIN,
                              interpret: bool = False) -> HitResult:
     """Drop-in replacement for :func:`ops.intersect.intersect_spheres` backed
-    by the Pallas sweep kernel (float32 only). ``interpret=True`` runs the
-    kernel in the Pallas interpreter (CPU-testable)."""
+    by the sweep kernel (float32 only)."""
     t, idx = _sweep(origin, direction, (scene.center, scene.radius), tmin,
                     interpret)
     return HitResult(t=t, index=idx, hit=t < BIG)
-
-
-# ---------------------------------------------------------------------------
-# Fused sweep + hit-attribute fetch (kernel v2)
-# ---------------------------------------------------------------------------
-
-def _sweep_fetch_kernel(cx_ref, cy_ref, cz_ref, ck_ref, r_ref, ar_ref, ag_ref,
-                        ab_ref, fz_ref, ir_ref, mt_ref,  # [N] SMEM scalars
-                        ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                        t_ref, idx_ref, bcx_ref, bcy_ref, bcz_ref, br_ref,
-                        bar_ref, bag_ref, bab_ref, bfz_ref, bir_ref, bmt_ref,
-                        *, n_spheres: int, tmin: float):
-    """Sweep + running-select of the winning sphere's attributes.
-
-    Eliminates the post-sweep one-hot [R,N] contraction entirely: the loop
-    that already knows the winner tracks (center, radius, albedo, fuzz, ir,
-    mat) alongside (best_t, best_idx) with one select each per sphere."""
-    ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]
-    dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-
-    od = ox * dx + oy * dy + oz * dz
-    oo = ox * ox + oy * oy + oz * oz
-
-    big = jnp.float32(BIG)
-    zeros = jnp.zeros(ox.shape, jnp.float32)
-    init = (jnp.full(ox.shape, big, jnp.float32), jnp.zeros(ox.shape, jnp.int32),
-            zeros, zeros, zeros, zeros, zeros, zeros, zeros, zeros, zeros, zeros)
-
-    def body(s, carry):
-        (bt, bi, bcx, bcy, bcz, br, bar, bag, bab, bfz, bir, bmt) = carry
-        cxs, cys, czs, cks = cx_ref[s], cy_ref[s], cz_ref[s], ck_ref[s]
-        cd = cxs * dx + cys * dy + czs * dz
-        oc = cxs * ox + cys * oy + czs * oz
-        hb = od - cd
-        c = oo - 2.0 * oc + cks
-        disc = hb * hb - c
-        sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-        r1 = -hb - sq
-        t = jnp.where(r1 >= tmin, r1, -hb + sq)
-        ok = (disc > 0) & (t >= tmin) & (t < bt)
-        sel = lambda a, b_: jnp.where(ok, a, b_)
-        return (sel(t, bt), sel(s, bi),
-                sel(cxs, bcx), sel(cys, bcy), sel(czs, bcz), sel(r_ref[s], br),
-                sel(ar_ref[s], bar), sel(ag_ref[s], bag), sel(ab_ref[s], bab),
-                sel(fz_ref[s], bfz), sel(ir_ref[s], bir), sel(mt_ref[s], bmt))
-
-    out = jax.lax.fori_loop(0, n_spheres, body, init)
-    for ref, val in zip((t_ref, idx_ref, bcx_ref, bcy_ref, bcz_ref, br_ref,
-                         bar_ref, bag_ref, bab_ref, bfz_ref, bir_ref, bmt_ref),
-                        out):
-        ref[:] = val
-
-
-@partial(jax.jit, static_argnames=("tmin", "interpret"))
-def _sweep_fetch_forward(origin, direction, centers, ck, radius, albedo, fuzz,
-                         ir, mat_f, tmin, interpret=False):
-    R = origin.shape[0]
-    n_spheres = centers.shape[0]
-    rows = -(-R // LANES)
-    rows = -(-rows // BLOCK_ROWS) * BLOCK_ROWS
-    grid = rows // BLOCK_ROWS
-
-    ray_planes = [
-        _pad_rows(origin[:, 0], rows), _pad_rows(origin[:, 1], rows),
-        _pad_rows(origin[:, 2], rows),
-        _pad_rows(direction[:, 0], rows), _pad_rows(direction[:, 1], rows),
-        _pad_rows(direction[:, 2], rows),
-    ]
-    sphere_planes = [centers[:, 0], centers[:, 1], centers[:, 2], ck, radius,
-                     albedo[:, 0], albedo[:, 1], albedo[:, 2], fuzz, ir, mat_f]
-
-    ray_spec = pl.BlockSpec((BLOCK_ROWS, LANES), lambda i, *_refs: (i, 0),
-                            memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=11,
-        grid=(grid,),
-        in_specs=[ray_spec] * 6,
-        out_specs=[ray_spec] * 12,
-    )
-    shapes = ([jax.ShapeDtypeStruct((rows, LANES), jnp.float32),
-               jax.ShapeDtypeStruct((rows, LANES), jnp.int32)]
-              + [jax.ShapeDtypeStruct((rows, LANES), jnp.float32)] * 10)
-    outs = pl.pallas_call(
-        partial(_sweep_fetch_kernel, n_spheres=n_spheres, tmin=tmin),
-        grid_spec=grid_spec,
-        out_shape=shapes,
-        interpret=interpret,
-    )(*sphere_planes, *ray_planes)
-    return tuple(o.reshape(-1)[:R] for o in outs)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(3, 4))
-def _sweep_fetch(origin, direction, scene_params, tmin, interpret):
-    centers, radius, albedo, fuzz, ir, mat_f = scene_params
-    ck = jnp.sum(centers * centers, axis=-1) - radius * radius
-    return _sweep_fetch_forward(origin, direction, centers, ck, radius, albedo,
-                                fuzz, ir, mat_f, tmin, interpret)
-
-
-def _sweep_fetch_fwd(origin, direction, scene_params, tmin, interpret):
-    out = _sweep_fetch(origin, direction, scene_params, tmin, interpret)
-    t, idx = out[0], out[1]
-    return out, (origin, direction, scene_params, t, idx)
-
-
-def _sweep_fetch_bwd(tmin, interpret, residuals, cotangents):
-    origin, direction, scene_params, t, idx = residuals
-    centers, radius, albedo, fuzz, ir, mat_f = scene_params
-    (g_t, _g_idx, g_cx, g_cy, g_cz, g_r, g_ar, g_ag, g_ab, g_fz, g_ir,
-     _g_mt) = cotangents
-
-    hit = t < BIG
-    t_safe = jnp.where(hit, t, 0.0)
-    c_sel = centers[idx]
-    r_sel = radius[idx]
-    p = origin + t_safe[:, None] * direction - c_sel
-    pd = jnp.sum(p * direction, axis=-1)
-    denom = jnp.where(jnp.abs(pd) > 1e-12, pd, 1.0)
-    scale = jnp.where(hit & (jnp.abs(pd) > 1e-12), g_t / denom, 0.0)
-
-    d_origin = -scale[:, None] * p
-    d_direction = -(scale * t_safe)[:, None] * p
-
-    # Attr-plane cotangents scatter back to the winning sphere rows (masked to
-    # hits so miss lanes contribute nothing).
-    m = hit.astype(g_cx.dtype)
-    c_rows = jnp.stack([g_cx * m, g_cy * m, g_cz * m], -1) + scale[:, None] * p
-    a_rows = jnp.stack([g_ar * m, g_ag * m, g_ab * m], -1)
-
-    d_centers = jnp.zeros_like(centers).at[idx].add(
-        jnp.where(hit[:, None], c_rows, 0.0))
-    d_radius = jnp.zeros_like(radius).at[idx].add(
-        jnp.where(hit, g_r * m + scale * r_sel, 0.0))
-    d_albedo = jnp.zeros_like(albedo).at[idx].add(
-        jnp.where(hit[:, None], a_rows, 0.0))
-    d_fuzz = jnp.zeros_like(fuzz).at[idx].add(jnp.where(hit, g_fz * m, 0.0))
-    d_ir = jnp.zeros_like(ir).at[idx].add(jnp.where(hit, g_ir * m, 0.0))
-    d_mat = jnp.zeros_like(mat_f)
-    return d_origin, d_direction, (d_centers, d_radius, d_albedo, d_fuzz,
-                                   d_ir, d_mat)
-
-
-_sweep_fetch.defvjp(_sweep_fetch_fwd, _sweep_fetch_bwd)
-
-
-def intersect_fetch_pallas(origin: jnp.ndarray, direction: jnp.ndarray,
-                           scene: Scene, tmin: float = DEFAULT_TMIN,
-                           interpret: bool = False):
-    """Fused sweep + attribute fetch: ``(HitResult, attrs)`` where ``attrs``
-    is the ``(center, radius, albedo, fuzz, ir, mat)`` tuple `scatter` expects.
-    Miss lanes get benign defaults (radius 0, ir 1) so no inf/NaN can leak
-    into masked shading lanes or their gradients."""
-    out = _sweep_fetch(origin, direction,
-                       (scene.center, scene.radius, scene.albedo, scene.fuzz,
-                        scene.ir, scene.mat.astype(jnp.float32)),
-                       tmin, interpret)
-    (t, idx, cx, cy, cz, r, ar, ag, ab, fz, irv, mt) = out
-    hit = t < BIG
-    center = jnp.stack([cx, cy, cz], axis=-1)
-    albedo = jnp.stack([ar, ag, ab], axis=-1)
-    attrs = (jnp.where(hit[:, None], center, 0.0),
-             jnp.where(hit, r, 0.0),
-             jnp.where(hit[:, None], albedo, 1.0),
-             jnp.where(hit, fz, 0.0),
-             jnp.where(hit, irv, 1.0),
-             jnp.where(hit, mt, 0.0).astype(jnp.int32))
-    return HitResult(t=t, index=idx, hit=hit), attrs

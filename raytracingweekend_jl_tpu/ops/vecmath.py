@@ -1,7 +1,7 @@
-"""Vector math on stacked ``[..., 3]`` arrays — the TPU-native counterpart of the
+"""Vector math on stacked ``[..., 3]`` arrays — the array counterpart of the
 reference's ``Vec3`` layer (reference: src/vec.jl:1-22, src/light.jl:1-25).
 
-The reference operates on one ``SVector{3,T}`` at a time; on TPU the unit of work
+The reference operates on one ``SVector{3,T}`` at a time; here the unit of work
 is a *batch* of vectors laid out as ``[..., 3]`` (or fully SoA as three planes),
 so every helper here is shape-polymorphic over leading batch dims and safe under
 ``jit`` / ``vmap`` / ``grad``.

@@ -42,21 +42,19 @@ DEVICE_FAILURE_LIMIT = 2
 
 
 def _run_tile(scene, cam, u_t, v_t, tile_key, n_samples, max_depth, tmin,
-              f32_w, f32_h, pixel_start, device):
+              f32_w, f32_h, device):
     """One tile on one explicit device (compute follows committed inputs)."""
     put = lambda x: jax.device_put(x, device)
     acc = render_tile_sum(jax.tree.map(put, scene), jax.tree.map(put, cam),
                           put(u_t), put(v_t), put(tile_key), n_samples, 0,
-                          max_depth, tmin, False, f32_w, f32_h,
-                          pixel_start=put(pixel_start))
+                          max_depth, tmin, False, f32_w, f32_h)
     return np.asarray(acc)  # host fetch surfaces device faults here
 
 
 
 def _elastic_schedule(devices, n_tiles: int, run_tile, on_result,
                       max_retries: int, emit) -> None:
-    """THE elastic scheduler, shared by the render and training drivers
-    (round-5 review: the worker/retry/quarantine loop was duplicated).
+    """THE elastic scheduler, shared by the render and training drivers.
 
     One worker thread per device pulls tile ids from a shared queue;
     ``run_tile(t_id, device)`` does the work (raising on device faults),
@@ -167,8 +165,7 @@ def render_radiance_elastic(scene: Scene, cam: Camera, image_width: int = 400,
         # the image.
         tile_key = rng.purpose_key(key, rng.PIXEL_JITTER + 0x10, t_id)
         return _run_tile(scene, cam, u[sl], v[sl], tile_key, n_samples,
-                         max_depth, tmin, f32_w, f32_h,
-                         jnp.int32(t_id * tile_size), dev)
+                         max_depth, tmin, f32_w, f32_h, dev)
 
     def on_result(t_id, acc):
         sl = slice(t_id * tile_size, (t_id + 1) * tile_size)
@@ -181,18 +178,16 @@ def render_radiance_elastic(scene: Scene, cam: Camera, image_width: int = 400,
 
 
 def _run_tile_grad(scene, cam, u_t, v_t, tile_key, target_t, valid_t,
-                   n_samples, max_depth, tmin, f32_w, f32_h, pixel_start,
+                   n_samples, max_depth, tmin, f32_w, f32_h,
                    device, grad_kwargs):
     """One tile's (SSE, scene-gradient) on one explicit device.
 
-    Gradient integrator per tile: the fixed-depth fused kernel pair on TPU
-    (shard-tile sizes — parallel/shard._auto_grad_mode's small-tile pick),
-    the XLA recorded path elsewhere; ``grad_kwargs`` overrides."""
+    Gradient integrator per tile: the XLA recorded path (ops/grad_trace.py);
+    ``grad_kwargs`` overrides."""
     from ..grad import DIFF_FIELDS
 
     if grad_kwargs is None:
-        on_tpu = jax.default_backend() == "tpu"
-        grad_kwargs = dict(recorded=True, recorded_fused=on_tpu)
+        grad_kwargs = dict(recorded=True)
     put = lambda x: jax.device_put(x, device)
     scene_d = jax.tree.map(put, scene)
     params = {f: getattr(scene_d, f) for f in DIFF_FIELDS}
@@ -201,8 +196,7 @@ def _run_tile_grad(scene, cam, u_t, v_t, tile_key, target_t, valid_t,
         s = scene_d._replace(**p)
         acc = render_tile_sum(s, jax.tree.map(put, cam), put(u_t), put(v_t),
                               put(tile_key), n_samples, 0, max_depth, tmin,
-                              False, f32_w, f32_h,
-                              pixel_start=put(pixel_start), **grad_kwargs)
+                              False, f32_w, f32_h, **grad_kwargs)
         img = acc / n_samples
         return jnp.sum(((img - put(target_t)) ** 2) * put(valid_t)[:, None])
 
@@ -218,9 +212,8 @@ def elastic_train_step(scene: Scene, cam: Camera, target, image_width: int,
                        devices=None, max_retries: int = 2,
                        grad_kwargs: dict | None = None,
                        progress: bool = False):
-    """Fault-isolated inverse-rendering SGD step (round-4 verdict Weak #5:
-    ``sharded_train_step`` is one jitted mesh program — any device fault
-    kills the step; a long unattended TRAINING run had no fault story).
+    """Fault-isolated inverse-rendering SGD step (``sharded_train_step`` is
+    one jitted mesh program — any device fault kills the step).
 
     The image loss decomposes exactly over pixel tiles
     (``mean((img-target)^2) = sum_tiles SSE_tile / (n_pix*3)``), so each
@@ -266,7 +259,7 @@ def elastic_train_step(scene: Scene, cam: Camera, target, image_width: int,
         return _run_tile_grad(
             scene, cam, u[sl], v[sl], tile_key, target_flat[sl],
             valid[sl], n_samples, max_depth, tmin, f32_w, f32_h,
-            jnp.int32(t_id * tile_size), dev, grad_kwargs)
+            dev, grad_kwargs)
 
     def on_result(t_id, res):
         sse_by_tile[t_id], grads_by_tile[t_id] = res  # tile-indexed slots

@@ -1,17 +1,17 @@
 """Device-mesh construction for sharded rendering.
 
 The reference's only parallelism is ``Threads.@threads`` over image rows on one
-host (reference: src/render.jl:23). The TPU-native replacement is a named 2-D
-mesh ``('tiles', 'samples')``:
+host (reference: src/render.jl:23). The replacement here is a named 2-D mesh
+``('tiles', 'samples')``:
 
 - ``tiles``: pixel-tile data parallelism (the primary axis — the analog of the
   reference's row loop);
 - ``samples``: samples-per-pixel parallelism, reduced with ``psum`` (the axis
   the reference only has as a sequential per-pixel loop, src/render.jl:29-39).
 
-On a multi-host pod slice the ``tiles`` axis should be laid out over DCN
-(independent tiles, no communication until assembly) and ``samples`` within a
-slice so the radiance/gradient psum rides ICI.
+The mesh follows the algorithm alone: devices are taken in ``jax.devices()``
+order, because the cards of a host are joined all to all (NVLink) and no
+device placement is cheaper than another for the ``samples`` psum.
 """
 
 from __future__ import annotations

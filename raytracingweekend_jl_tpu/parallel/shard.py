@@ -1,6 +1,6 @@
 """shard_map render and training step — the multi-chip driver.
 
-This is the TPU-native replacement of the reference's fork-join row loop
+This is the accelerator replacement of the reference's fork-join row loop
 (reference: src/render.jl:23-42): pixel *tiles* are sharded over the mesh's
 ``tiles`` axis, samples-per-pixel over the ``samples`` axis, and the per-shard
 partial radiance sums are combined with a single ``psum`` over ``samples``
@@ -39,9 +39,10 @@ from ..render import render_tile_sum, pixel_coords, image_height_for
 from ..scene import Scene
 from .mesh import TILES_AXIS, SAMPLES_AXIS
 
-#: Default pixels per tile. 8192 = 64 (8,128) vregs of ray state — big enough
-#: to saturate the VPU, small enough that live wavefront state stays far below
-#: HBM limits even with dozens of tiles in flight.
+#: Default pixels per tile. Tiles are the unit of RNG keying (global tile id),
+#: so the tile size is part of an image's identity. 8192 keeps many tiles per
+#: device on small images; a GPU is only filled by tiles of 2^18 pixels or
+#: more, so pass ``tile_size`` for large renders.
 DEFAULT_TILE = 8192
 
 
@@ -61,8 +62,7 @@ def _padded_coords(image_width: int, image_height: int, tile_size: int,
                                    "n_samples", "tile_size", "max_depth",
                                    "tmin", "remat", "compact",
                                    "samples_per_pass", "persistent",
-                                   "recorded", "recorded_fused",
-                                   "recorded_persist", "reduce_mean"))
+                                   "recorded", "reduce_mean"))
 def _sharded_radiance(scene: Scene, cam: Camera, key: jax.Array, *,
                       mesh: Mesh, image_width: int, image_height: int,
                       n_samples: int, tile_size: int, max_depth: int,
@@ -70,8 +70,6 @@ def _sharded_radiance(scene: Scene, cam: Camera, key: jax.Array, *,
                       samples_per_pass: int = 1,
                       persistent: bool = False,
                       recorded: bool = False,
-                      recorded_fused: bool = False,
-                      recorded_persist: tuple | None = None,
                       sample_offset=0,
                       reduce_mean: bool = True) -> jnp.ndarray:
     dtype = cam.origin.dtype
@@ -103,16 +101,11 @@ def _sharded_radiance(scene: Scene, cam: Camera, key: jax.Array, *,
             # Global tile id ⇒ device-count-invariant RNG streams.
             global_tile = tile_shard * tiles_per_shard + i
             tile_key = rng.purpose_key(key, rng.PIXEL_JITTER + 0x10, global_tile)
-            # Tiles are contiguous row-major pixel ranges, so the persistent
-            # TPU path can run the load-balanced strided integrator per shard.
             tile_sum = render_tile_sum(scene, cam, u_tiles[i], v_tiles[i],
                                        tile_key, local_spp, shard_offset,
                                        max_depth, tmin, remat, f32_w, f32_h,
                                        compact, samples_per_pass, persistent,
-                                       pixel_start=global_tile * tile_size,
-                                       recorded=recorded,
-                                       recorded_fused=recorded_fused,
-                                       recorded_persist=recorded_persist)
+                                       recorded=recorded)
             return jax.lax.dynamic_update_slice(acc, tile_sum[None], (i, 0, 0))
 
         acc = jax.lax.fori_loop(
@@ -144,8 +137,6 @@ def render_radiance_sharded(scene: Scene, cam: Camera, image_width: int = 400,
                             persistent: bool = False,
                             rays_per_pass: int | None = None,
                             recorded: bool = False,
-                            recorded_fused: bool = False,
-                            recorded_persist: tuple | None = None,
                             sample_offset: int = 0,
                             reduce_mean: bool = True
                             ) -> jnp.ndarray:
@@ -171,55 +162,29 @@ def render_radiance_sharded(scene: Scene, cam: Camera, image_width: int = 400,
                              tile_size=tile_size, max_depth=max_depth,
                              tmin=tmin, remat=remat, compact=compact,
                              samples_per_pass=spp_pass, persistent=persistent,
-                             recorded=recorded, recorded_fused=recorded_fused,
-                             recorded_persist=recorded_persist,
+                             recorded=recorded,
                              sample_offset=sample_offset,
                              reduce_mean=reduce_mean)
-
-
-def _auto_grad_mode(backend: str, tile_size: int) -> str:
-    """Default recorded-integrator choice per shard tile: the fixed-depth
-    kernel pair at typical shard tile sizes; the strip-refilled persistent
-    pair once a tile is big enough that its strip geometry stops
-    degenerating (the same >=2^17-pixel threshold resolve_grad_path uses
-    for full images, where persist measured 13.9 vs 8.0 Mpaths/s). CPU:
-    the XLA recorded path (the kernel pairs would run in interpret mode —
-    covered by an explicit-grad_mode mesh test instead)."""
-    if backend != "tpu":
-        # CPU and any non-TPU accelerator: the XLA recorded path (the
-        # Mosaic kernel pairs lower only on TPU; CPU interpret mode is
-        # covered by an explicit-grad_mode mesh test instead).
-        return "recorded"
-    return "persist" if tile_size >= (1 << 17) else "fused"
 
 
 def sharded_train_step(scene: Scene, cam: Camera, target: jnp.ndarray,
                        image_width: int, n_samples: int, *, mesh: Mesh,
                        lr: float = 0.01, tile_size: int = DEFAULT_TILE,
                        seed: int | jax.Array = 0,
-                       grad_mode: str | None = None
+                       grad_mode: str = "recorded"
                        ) -> tuple[jnp.ndarray, Scene]:
     """One sharded inverse-rendering SGD step.
 
     Forward renders the sharded image, computes an MSE loss against ``target``,
     and backprops through the shard_map — the scene-parameter gradients are
     all-reduced across shards by the shard_map transpose (north-star gradient
-    path). Returns ``(loss, updated_scene)``.
+    path). Returns ``(loss, updated_scene)``. Each shard tile runs the XLA
+    recorded integrator (ops/grad_trace.py), the only ``grad_mode``.
     """
     from ..grad import DIFF_FIELDS
 
-    # grad_mode picks the recorded integrator per shard tile: "fused" (the
-    # kernel-pair path, fastest at shard tile sizes), "persist" (the
-    # strip-refilled pair — pays at >=1M-ray tiles), or "recorded" (the XLA
-    # path; also the CPU fallback — render_tile_sum interprets the Pallas
-    # pairs on CPU, so mesh tests still cover the dispatch).
-    if grad_mode is None:
-        grad_mode = _auto_grad_mode(jax.default_backend(), tile_size)
-    if grad_mode not in ("fused", "persist", "recorded"):
+    if grad_mode != "recorded":
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
-    rkw = dict(recorded=True,
-               recorded_fused=grad_mode == "fused",
-               recorded_persist=(8, None) if grad_mode == "persist" else None)
 
     def loss_fn(diff_params):
         s = scene._replace(**diff_params)
@@ -228,7 +193,8 @@ def sharded_train_step(scene: Scene, cam: Camera, target: jnp.ndarray,
         # all-reduced exactly as before.
         img = render_radiance_sharded(s, cam, image_width, n_samples, mesh=mesh,
                                       image_height=target.shape[0],
-                                      tile_size=tile_size, seed=seed, **rkw)
+                                      tile_size=tile_size, seed=seed,
+                                      recorded=True)
         return jnp.mean((img - target) ** 2)
 
     params = {f: getattr(scene, f) for f in DIFF_FIELDS}

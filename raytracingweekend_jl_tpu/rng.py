@@ -2,7 +2,7 @@
 
 The reference uses one mutable ``Xoroshiro128Plus`` per OS thread
 (reference: src/init.jl:2-12, src/rand.jl:2-13), which makes every sample
-schedule-dependent. The TPU-native design replaces that with JAX's
+schedule-dependent. This design replaces that with JAX's
 counter-based threefry keys: every consumption site derives its key by
 ``fold_in``-ing a static *purpose* tag plus its (chunk, sample, bounce)
 coordinates, so any pixel/sample/bounce draw is reproducible independent of

@@ -2,7 +2,7 @@
 
 The reference stores the scene as an AoS ``Vector{Hittable}`` of boxed spheres
 with per-object material objects and dynamic dispatch
-(reference: src/structs.jl:10,31-35). On TPU the scene is a structure-of-arrays
+(reference: src/structs.jl:10,31-35). Here the scene is a structure-of-arrays
 pytree: dense, statically shaped, replicated per chip, and directly usable as
 the differentiable ``params`` of an inverse-rendering step.
 
@@ -26,8 +26,8 @@ LAMBERTIAN = 0
 METAL = 1
 DIELECTRIC = 2
 
-#: Pad sphere count to a multiple of this so the intersection sweep tiles
-#: cleanly onto (8,128) VPU registers / the 128-lane MXU dimension.
+#: Pad sphere count to a multiple of this so scenes of similar size share
+#: one compiled program (``trim_scene`` drops the padding for a single render).
 SPHERE_PAD = 128
 
 

@@ -2,7 +2,7 @@
 (SURVEY.md §5: 'Config: None — function kwargs + script-edited globals').
 
 One dataclass covers the reference's knobs (scene, width, spp, depth,
-precision = ``elem_type``, seed) plus the TPU-native ones (mesh shape, tile
+precision = ``elem_type``, seed) plus the accelerator ones (mesh shape, tile
 size, compaction, checkpointing).
 """
 
@@ -27,7 +27,7 @@ class RenderConfig:
     precision: str = "f32"              # f32 | f64 (the elem_type switch)
     scene_seed: int = 1                 # for random_spheres
 
-    # TPU-native execution knobs
+    # Execution knobs
     compact: bool = False               # tile-skip/compaction integrator
     persistent: bool = True             # persistent-wavefront integrator (fastest)
     rays_per_pass: int = 1 << 21        # wavefront size target

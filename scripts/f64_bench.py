@@ -1,13 +1,12 @@
 """One Float64 flagship throughput row (reference methodology parity).
 
 The reference's published benchmarks are Float64 end-to-end
-(/root/reference/src/proto/proto.jl:15, README.md:81) while this framework's
-headline is f32 (the TPU-native precision) — so the 30x+ headline compares
-f32 against the reference's f64. This script measures OUR f64 throughput on
-the flagship config so the comparison can be stated honestly in both
-precisions: TPUs have no native f64 (XLA emulates it on the VPU), and the
-Pallas persistent kernels are f32-only, so the f64 path is the plain XLA
-wavefront trace — expect an order of magnitude below the f32 kernels.
+(reference src/proto/proto.jl:15, README.md:81) while this framework's
+headline is f32 — so the headline compares f32 against the reference's f64.
+This script measures OUR f64 throughput on the flagship config so the
+comparison can be stated in both precisions. The sweep kernel is f32-only,
+so f64 rays take the plain XLA sweep (the GPU runs f64 natively, at a
+fraction of its f32 rate).
 
 Appends a ``flagship_f64_*`` row to bench_history.jsonl.
 

@@ -1,10 +1,11 @@
 #!/bin/bash
-# Round snapshot gate (round-4 verdict #1): the snapshot commit must pass
+# Snapshot gate: a commit must pass
 #   1. the FULL test profile (slow + fast) on the 8-device CPU mesh,
 #   2. the driver entry compile-check + multichip dryrun,
 #   3. a CLI smoke render,
-# and, with RTW_GATE_DEVICE=1 (a live TPU), the on-device validation suite
-# and the bench headline. Run from anywhere; exits nonzero on any failure.
+# and, with RTW_GATE_DEVICE=1 (on a machine with an NVIDIA GPU), the card
+# smoke test and the bench headline. Run from anywhere; exits nonzero on any
+# failure.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
@@ -38,8 +39,8 @@ test -s "$tmp/out.png"
 rm -rf "$tmp"
 
 if [ "${RTW_GATE_DEVICE:-0}" = "1" ]; then
-  echo "== gate: on-device validation =="
-  python scripts/tpu_validate.py
+  echo "== gate: card smoke test =="
+  python chip_smoke.py
   echo "== gate: bench headline =="
   python bench.py
 fi

@@ -2,12 +2,12 @@
 asks for at 1 chip / 1 host / N hosts (BASELINE.json).
 
 Runs the sharded renderer on meshes of 1, 2, 4, ... devices (whatever is
-attached: real TPU chips on a pod slice, or the virtual CPU mesh via
+attached: the GPUs of a host, or the virtual CPU mesh via
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu``) with
 a FIXED per-device workload (weak scaling: pixels per device constant), and
 reports throughput + parallel efficiency as JSON lines.
 
-On a multi-host pod slice, run under `jax.distributed` (see
+On several hosts, run under `jax.distributed` (see
 parallel/multihost.initialize) — same script, every host executes it.
 """
 

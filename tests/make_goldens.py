@@ -3,14 +3,13 @@
     python tests/make_goldens.py [base|persistent|hires|all]
 
 - base: renders_64x36_spp4.npz — the plain-path goldens (all six scenes).
-- persistent: persistent_interpret_64x36_spp4.npz — PER-PIXEL goldens for the
-  fused and strided Pallas kernels in interpret mode. Interpret mode draws its
-  uniforms from threefry (deterministic given the key), so these pin the
-  kernels' shading/regeneration math exactly — the per-pixel persistent-path
-  net VERDICT r1 Weak #5 called missing.
+- persistent: persistent_64x36_spp4.npz — PER-PIXEL goldens for the
+  persistent-wavefront integrator (ops/integrator.persistent_render_sum) on
+  all six scenes. Its RNG is counter-based threefry, so these pin its
+  shading and in-place regeneration math exactly.
 - hires: renders_256x144_spp64.npz — a 16x-resolution / 16x-spp golden of the
   flagship scene. Low Monte-Carlo noise => tight on-device thresholds in
-  scripts/tpu_validate.py (mismatch fraction <= 2%).
+  chip_smoke.py (mismatch fraction <= 2%).
 
 Regenerating overwrites fixtures: only do it when a change is SUPPOSED to
 alter images, and say so in the commit message.
@@ -30,7 +29,7 @@ import numpy as np  # noqa: E402
 import raytracingweekend_jl_tpu as rtw  # noqa: E402
 from raytracingweekend_jl_tpu.render import pixel_coords  # noqa: E402
 from raytracingweekend_jl_tpu.ops.integrator import (  # noqa: E402
-    persistent_render_sum_fused, persistent_render_sum_strided)
+    persistent_render_sum)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
@@ -60,17 +59,12 @@ def gen_persistent():
     u, v = pixel_coords(W, H)
     fw, fh = float(np.float32(W)), float(np.float32(H))
     out = {}
-    for name in ("4_spheres", "diel_spheres_hollow", "random_spheres"):
-        scene = scene_of(name)
-        cam = CAMS[name]()
-        out[f"{name}/fused"] = np.asarray(persistent_render_sum_fused(
-            scene, cam, u, v, key, spp, 0, 16, 1e-4, fw, fh, interpret=True))
-        out[f"{name}/strided"] = np.asarray(persistent_render_sum_strided(
-            scene, cam, u, v, key, spp, 0, 16, 1e-4, fw, fh, k=4,
-            interpret=True))
+    for name in sorted(CAMS):
+        out[name] = np.asarray(persistent_render_sum(
+            scene_of(name), CAMS[name](), u, v, key, spp, 0, 16, 1e-4,
+            fw, fh))
         print("persistent", name, flush=True)
-    np.savez(os.path.join(GOLDEN_DIR, "persistent_interpret_64x36_spp4.npz"),
-             **out)
+    np.savez(os.path.join(GOLDEN_DIR, "persistent_64x36_spp4.npz"), **out)
 
 
 def gen_hires():

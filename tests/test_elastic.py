@@ -34,13 +34,13 @@ def test_elastic_survives_persistent_device_fault(monkeypatch):
     real = elastic._run_tile
     n_faults = {"n": 0}
 
-    def flaky(scene, cam, u_t, v_t, key, n_samples, md, tmin, fw, fh, ps,
+    def flaky(scene, cam, u_t, v_t, key, n_samples, md, tmin, fw, fh,
               device):
         if device == bad_dev:
             n_faults["n"] += 1
             raise RuntimeError("injected device fault")
         return real(scene, cam, u_t, v_t, key, n_samples, md, tmin, fw, fh,
-                    ps, device)
+                    device)
 
     monkeypatch.setattr(elastic, "_run_tile", flaky)
     # Two devices + many tiles so the faulty worker is guaranteed to pull
@@ -95,8 +95,9 @@ def test_elastic_concurrent_scaling_and_bitwise_invariance(monkeypatch):
 
     # Wall-clock scaling of the SCHEDULER itself: a pure-sleep tile stands in
     # for device work (real CPU tiles serialize on the host executor and
-    # would mask the concurrency; on TPUs each device computes independently).
-    def sleepy(scene, cam, u_t, v_t, key, n, md, tmin, fw, fh, ps, device):
+    # would mask the concurrency; on accelerators each device computes
+    # independently).
+    def sleepy(scene, cam, u_t, v_t, key, n, md, tmin, fw, fh, device):
         time.sleep(0.15)
         return np.zeros((u_t.shape[0], 3))
 

@@ -36,36 +36,26 @@ def test_golden_render(name):
 
 
 PERSISTENT_GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
-                                 "persistent_interpret_64x36_spp4.npz")
+                                 "persistent_64x36_spp4.npz")
 
 
-@pytest.mark.parametrize("name", ["4_spheres", "diel_spheres_hollow",
-                                  "random_spheres"])
-@pytest.mark.parametrize("variant", ["fused", "strided"])
-def test_persistent_kernel_golden(name, variant):
-    # PER-PIXEL goldens for the persistent Pallas kernels: interpret mode
-    # draws its uniforms from threefry (deterministic given the key), so any
-    # drift in the kernels' shading/regeneration math — not just its mean —
-    # fails here (VERDICT r1 Weak #5: persistent paths had only mean checks).
+@pytest.mark.parametrize("name", sorted(CAMS))
+def test_persistent_golden(name):
+    # PER-PIXEL goldens for the persistent-wavefront integrator (the
+    # production forward): its threefry streams are counter-based, so any
+    # drift in its shading or in-place regeneration math — not just its
+    # mean — fails here.
     import jax
     from raytracingweekend_jl_tpu.render import pixel_coords
-    from raytracingweekend_jl_tpu.ops.integrator import (
-        persistent_render_sum_fused, persistent_render_sum_strided)
+    from raytracingweekend_jl_tpu.ops.integrator import persistent_render_sum
 
     goldens = np.load(PERSISTENT_GOLDEN)
     scene = (rtw.scene_random_spheres(seed=1) if name == "random_spheres"
              else rtw.ALL_SCENES[name]())
-    cam = CAMS[name]()
     W, H = 64, 36
     u, v = pixel_coords(W, H)
     fw, fh = float(np.float32(W)), float(np.float32(H))
-    key = jax.random.PRNGKey(0)
-    if variant == "fused":
-        img = persistent_render_sum_fused(scene, cam, u, v, key, 4, 0, 16,
-                                          1e-4, fw, fh, interpret=True)
-    else:
-        img = persistent_render_sum_strided(scene, cam, u, v, key, 4, 0, 16,
-                                            1e-4, fw, fh, k=4, interpret=True)
-    np.testing.assert_allclose(np.asarray(img), goldens[f"{name}/{variant}"],
-                               atol=1e-5,
-                               err_msg=f"persistent golden drift {name}/{variant}")
+    img = persistent_render_sum(scene, CAMS[name](), u, v,
+                                jax.random.PRNGKey(0), 4, 0, 16, 1e-4, fw, fh)
+    np.testing.assert_allclose(np.asarray(img), goldens[name], atol=1e-5,
+                               err_msg=f"persistent golden drift in {name}")

@@ -10,6 +10,7 @@ RNG key is fixed so the sampled light paths are identical across perturbations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from raytracingweekend_jl_tpu import (make_scene, lambertian, metal, default_camera,
                                       render_radiance, scene_2_spheres, t_default_cam)
@@ -249,72 +250,52 @@ def test_recorded_staged_budget_contract():
     assert rad.mean() < full.mean()
 
 
-def test_resolve_grad_path_decision_table():
+@pytest.mark.parametrize("flags,recorded,remat", [
+    ({}, True, False),                                  # default: recorded
+    ({"recorded": True}, True, False),
+    ({"remat": True}, False, True),                     # remat implies XLA transpose
+    ({"recorded": False}, False, True),
+    ({"recorded": False, "remat": True}, False, True),
+    ({"recorded_stage": (4, 4)}, True, False),          # staged recorded variant
+])
+def test_resolve_grad_path_decision_table(flags, recorded, remat):
     from raytracingweekend_jl_tpu.grad import resolve_grad_path
-    big, small = 1 << 21, 1 << 14
-    # TPU, no flags, big image -> persistent pair + depth-scaled boundary.
-    kw = resolve_grad_path({}, big, "tpu")
-    assert kw["recorded"] and kw["recorded_persist"] == (8, None, (44, 16))
-    kw = resolve_grad_path({"max_depth": 32}, big, "tpu")
-    assert kw["recorded_persist"] == (8, None, (88, 16))
-    # TPU, small image -> fixed-depth fused pair.
-    kw = resolve_grad_path({}, small, "tpu")
-    assert kw.get("recorded_fused") and "recorded_persist" not in kw
-    # CPU, no flags -> XLA recorded path, no kernel pairs.
-    kw = resolve_grad_path({}, big, "cpu")
-    assert kw["recorded"] and "recorded_persist" not in kw \
-        and "recorded_fused" not in kw
-    # Explicit flags are always respected (no auto-upgrade).
-    kw = resolve_grad_path({"recorded": True}, big, "tpu")
-    assert "recorded_persist" not in kw and "recorded_fused" not in kw
-    kw = resolve_grad_path({"remat": True}, big, "tpu")
-    assert kw["remat"] and not kw["recorded"]
-    kw = resolve_grad_path({"recorded_fused": True}, big, "tpu")
-    assert kw["recorded"] and "recorded_persist" not in kw
+    kw = resolve_grad_path(dict(flags))
+    assert kw["recorded"] is recorded and kw["remat"] is remat
+    for k, v in flags.items():
+        assert kw[k] == v  # explicit flags are kept verbatim
 
 
 def test_render_loss_rejects_forward_only_flags():
     from raytracingweekend_jl_tpu.grad import resolve_grad_path
-    import pytest
     with pytest.raises(ValueError, match="forward-only"):
-        resolve_grad_path({"persistent": True}, 1 << 20, "tpu")
+        resolve_grad_path({"persistent": True})
     with pytest.raises(ValueError, match="forward-only"):
-        resolve_grad_path({"compact": True}, 1 << 20, "cpu")
-    with pytest.raises(ValueError, match="recorded_persist must be"):
-        resolve_grad_path({"recorded_persist": True}, 1 << 20, "tpu")
-    with pytest.raises(ValueError, match="recorded_persist must be"):
-        resolve_grad_path({"recorded_persist": (8,)}, 1 << 20, "tpu")
+        resolve_grad_path({"compact": True})
 
 
 def test_remat_passes_auto_and_fd():
-    # High-spp gradients would keep every pass's path records alive (46 GB
+    # High-spp gradients would keep every pass's path records alive (55 GB
     # at flagship spp=16); render_loss auto-checkpoints the pass loop when
-    # the total record footprint exceeds the HBM budget, and the
-    # checkpointed program must stay FD-consistent.
-    from raytracingweekend_jl_tpu.grad import render_loss, render_grads
+    # the total record footprint exceeds the budget, and the checkpointed
+    # program must stay FD-consistent.
+    from raytracingweekend_jl_tpu.grad import render_grads
     from raytracingweekend_jl_tpu.render import render_radiance
     import raytracingweekend_jl_tpu as rtw
-
-    # Decision: flagship spp=16 on TPU -> remat; spp=1 -> not.
-    import inspect
     from raytracingweekend_jl_tpu import grad as gradmod
-    kw = {}
-    gradmod.resolve_grad_path(kw, 1920 * 1080, "tpu")
-    # record_hbm_budget() resolves lazily (device HBM minus the live-set
-    # reserve; CPU keeps the historical 8 GiB) — the module attribute is
-    # None unless pinned via RTW_RECORD_HBM_GB / monkeypatch.
-    budget = gradmod.record_hbm_budget()
-    total16 = 1920 * 1080 * 16 * gradmod._FUSED_BYTES_PER_RAY_BOUNCE * 16
-    assert total16 > budget  # the spp=16 case trips it
-    total1 = 1920 * 1080 * 1 * gradmod._FUSED_BYTES_PER_RAY_BOUNCE * 16
-    assert total1 < budget   # spp=1 does not
 
-    # FD consistency of the checkpointed pass loop (persist, spp=4, CPU).
+    # Decision: flagship spp=16 -> remat; spp=1 -> not (CPU budget 8 GiB).
+    kw = gradmod.plan_pass_memory(dict(recorded=True), 1920 * 1080, 16)
+    assert kw["remat_passes"] is True
+    kw = gradmod.plan_pass_memory(dict(recorded=True), 1920 * 1080, 1)
+    assert "remat_passes" not in kw
+
+    # FD consistency of the checkpointed pass loop (spp=4, CPU).
     scene = rtw.scene_4_spheres()
     cam = rtw.t_default_cam()
     target = render_radiance(scene, cam, 48, 4, image_height=27, seed=3)
     bad = scene._replace(albedo=jnp.clip(scene.albedo * 0.8, 0, 1))
-    kw = dict(recorded_persist=(4, None), remat_passes=True)
+    kw = dict(recorded=True, remat_passes=True)
     loss, g = render_grads(bad, cam, target, 48, 4, **kw)
     g_ad = float(np.asarray(g.albedo)[1, 0])
 
@@ -330,28 +311,67 @@ def test_remat_passes_auto_and_fd():
     np.testing.assert_allclose(g_ad, g_fd, rtol=3e-2, atol=1e-6)
 
 
-def test_plan_pass_memory_escalation():
-    """Escalation order at flagship geometry: spp<=4 stores all passes'
-    records, spp 8/16 drop the recorded attr planes instead of remating,
-    and only a budget even the lean record exceeds turns pass remat on."""
-    from raytracingweekend_jl_tpu.grad import plan_pass_memory
+@pytest.mark.parametrize("n_samples,budget_gib,expect", [
+    (1, 8, None),        # one pass: nothing to plan
+    (4, 8, True),        # flagship x4 spp: 13.8 GB of records > 8 GiB
+    (4, 45, False),      # fits a 45 GiB budget (an 80 GB card's share)
+    (16, 45, True),      # 55.2 GB of records > 45 GiB
+])
+def test_plan_pass_memory_escalation(monkeypatch, n_samples, budget_gib,
+                                     expect):
+    """Pass remat turns on exactly when all passes' records exceed the
+    budget; explicit choices and non-recorded paths are left alone."""
+    from raytracingweekend_jl_tpu import grad as gradmod
+    monkeypatch.setattr(gradmod, "RECORD_HBM_BUDGET", budget_gib * 2**30)
     n_pix = 1920 * 1080
-    base = dict(recorded=True, recorded_persist=(8, None, (44, 16)))
-
-    kw = plan_pass_memory(dict(base), n_pix, 4)
+    kw = gradmod.plan_pass_memory(dict(recorded=True), n_pix, n_samples)
+    assert kw.get("remat_passes") is expect
+    kw = gradmod.plan_pass_memory(dict(recorded=True, remat_passes=False),
+                                  n_pix, n_samples)
     assert kw["remat_passes"] is False
-    assert len(kw["recorded_persist"]) == 3  # rec_attrs untouched
+    kw = gradmod.plan_pass_memory(dict(recorded=False), n_pix, n_samples)
+    assert "remat_passes" not in kw
 
-    kw = plan_pass_memory(dict(base), n_pix, 8)
-    assert kw["remat_passes"] is False
-    assert kw["recorded_persist"][3] is False  # lean record picked
 
-    kw = plan_pass_memory(dict(base), n_pix, 64)
-    assert kw["remat_passes"] is True  # even lean records exceed budget
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self._stats = stats
 
-    # An explicit rec_attrs choice is respected (no auto-override).
-    explicit = dict(recorded=True,
-                    recorded_persist=(8, None, (44, 16), True))
-    kw = plan_pass_memory(dict(explicit), n_pix, 8)
-    assert kw["recorded_persist"][3] is True
-    assert kw["remat_passes"] is True
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("platform,stats,expect", [
+    ("gpu", {"bytes_limit": 60 * 2**30}, 45 * 2**30),
+    ("gpu", {"bytes_limit": 8 * 2**30, "peak_bytes_in_use": 1}, 6 * 2**30),
+    ("cpu", None, 8 * 2**30),
+])
+def test_record_hbm_budget_from_memory_stats(monkeypatch, platform, stats,
+                                             expect):
+    from raytracingweekend_jl_tpu import grad as gradmod
+    monkeypatch.setattr(gradmod, "RECORD_HBM_BUDGET", None)
+    monkeypatch.setattr(gradmod, "_RESOLVED_HBM_BUDGET", None)
+    monkeypatch.setattr(gradmod.jax, "local_devices",
+                        lambda: [_FakeDevice(platform, stats)])
+    assert gradmod.record_hbm_budget() == expect
+
+
+@pytest.mark.parametrize("stats", [None, {}, {"bytes_limit": 0}])
+def test_record_hbm_budget_requires_a_limit(monkeypatch, stats):
+    # An accelerator that reports no limit is an error, not a table lookup.
+    from raytracingweekend_jl_tpu import grad as gradmod
+    monkeypatch.setattr(gradmod, "RECORD_HBM_BUDGET", None)
+    monkeypatch.setattr(gradmod, "_RESOLVED_HBM_BUDGET", None)
+    monkeypatch.setattr(gradmod.jax, "local_devices",
+                        lambda: [_FakeDevice("gpu", stats)])
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        gradmod.record_hbm_budget()
+
+
+def test_record_hbm_budget_explicit_pin_wins(monkeypatch):
+    from raytracingweekend_jl_tpu import grad as gradmod
+    monkeypatch.setattr(gradmod, "RECORD_HBM_BUDGET", 123)
+    monkeypatch.setattr(gradmod.jax, "local_devices",
+                        lambda: [_FakeDevice("gpu", None)])
+    assert gradmod.record_hbm_budget() == 123

@@ -4,6 +4,7 @@ reference's recursive ray_color contract (reference: src/ray_color.jl:14-38)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from raytracingweekend_jl_tpu import (make_scene, lambertian, metal, dielectric,
                                       trace, skycolor, scene_2_spheres)
@@ -135,47 +136,92 @@ def test_trace_remat_matches():
     np.testing.assert_allclose(a, b, atol=1e-6)
 
 
-def test_onehot_rows_exact_matches_gather():
-    # The bf16x3-split one-hot contraction must equal the gather bitwise.
-    from raytracingweekend_jl_tpu.ops.materials import _onehot_rows_exact
-    from raytracingweekend_jl_tpu import scene_random_spheres
-    scene = scene_random_spheres(seed=1)
-    attr = jnp.concatenate([scene.center, scene.radius[:, None], scene.albedo,
-                            scene.fuzz[:, None], scene.ir[:, None]], axis=1)
+def _onehot_rows(index, attr, n):
+    """``attr[index]`` as a one-hot [R,N] @ [N,F] product with the float32
+    table split into three exact bf16 parts (hi + mid + lo == attr) — the
+    matrix-unit form of the attribute fetch, kept here as an independent
+    formulation of the gather."""
+    hi = attr.astype(jnp.bfloat16)
+    rem = attr - hi.astype(jnp.float32)
+    mid = rem.astype(jnp.bfloat16)
+    lo = (rem - mid.astype(jnp.float32)).astype(jnp.bfloat16)
+    f = attr.shape[1]
+    onehot = (index[:, None] == jnp.arange(n)[None, :]).astype(jnp.bfloat16)
+    rows3 = jnp.dot(onehot, jnp.concatenate([hi, mid, lo], axis=1),
+                    preferred_element_type=jnp.float32)
+    return rows3[:, :f] + rows3[:, f:2 * f] + rows3[:, 2 * f:]
+
+
+def _attr_table(scene):
+    return jnp.concatenate([scene.center, scene.radius[:, None], scene.albedo,
+                            scene.fuzz[:, None], scene.ir[:, None],
+                            scene.mat[:, None].astype(jnp.float32)], axis=1)
+
+
+@pytest.mark.parametrize("name", ["2_spheres", "4_spheres", "diel_spheres",
+                                  "diel_spheres_hollow", "blue_red_spheres",
+                                  "random_spheres"])
+def test_onehot_rows_exact_matches_gather(name):
+    # The gather the shading stage uses must equal the exact one-hot
+    # contraction bitwise, so replacing one with the other moves no image.
+    from raytracingweekend_jl_tpu import ALL_SCENES, scene_random_spheres
+    from raytracingweekend_jl_tpu.ops.materials import gather_sphere_attrs
+    scene = (scene_random_spheres(seed=1) if name == "random_spheres"
+             else ALL_SCENES[name]())
     idx = jax.random.randint(jax.random.PRNGKey(0), (4096,), 0, scene.n_spheres)
-    rows = _onehot_rows_exact(idx, attr, scene.n_spheres)
-    np.testing.assert_array_equal(np.asarray(rows), np.asarray(attr)[np.asarray(idx)])
+    rows = np.asarray(_onehot_rows(idx, _attr_table(scene), scene.n_spheres))
+    c, r, a, f, ir, m = (np.asarray(x) for x in
+                         gather_sphere_attrs(scene, idx, jnp.float32))
+    np.testing.assert_array_equal(rows[:, 0:3], c)
+    np.testing.assert_array_equal(rows[:, 3], r)
+    np.testing.assert_array_equal(rows[:, 4:7], a)
+    np.testing.assert_array_equal(rows[:, 7], f)
+    np.testing.assert_array_equal(rows[:, 8], ir)
+    np.testing.assert_array_equal(rows[:, 9].astype(np.int32), m)
 
 
 def test_onehot_cols_exact_matches_gather():
-    # The flipped (small-M) one-hot fetch must also equal the gather bitwise.
-    from raytracingweekend_jl_tpu.ops.materials import _onehot_cols_exact
+    # The transposed one-hot form ([F,N] @ [N,R]) is the same gather.
     from raytracingweekend_jl_tpu import scene_random_spheres
     scene = scene_random_spheres(seed=1)
-    attr = jnp.concatenate([scene.center, scene.radius[:, None], scene.albedo,
-                            scene.fuzz[:, None], scene.ir[:, None]], axis=1)
+    attr = _attr_table(scene)
     idx = jax.random.randint(jax.random.PRNGKey(0), (4096,), 0, scene.n_spheres)
-    cols = _onehot_cols_exact(idx, attr, scene.n_spheres)
-    np.testing.assert_array_equal(np.asarray(cols),
-                                  np.asarray(attr)[np.asarray(idx)].T)
+    cols = np.asarray(_onehot_rows(idx, attr, scene.n_spheres)).T
+    np.testing.assert_array_equal(cols, np.asarray(attr)[np.asarray(idx)].T)
 
 
-def test_dattr_contract_flip_matches_row_form():
-    # The flipped dattr reduction differs from the row form only in f32
-    # accumulation order; on a well-scaled cotangent batch the two must agree
-    # to float32 round-off, and the row form must equal a segment-sum oracle.
-    from raytracingweekend_jl_tpu.ops.pallas import grad_kernel as gk
-    n = 488
-    key = jax.random.PRNGKey(3)
-    idx = jax.random.randint(key, (8192,), 0, n)
-    d9 = jax.random.normal(jax.random.PRNGKey(4), (9, 8192), jnp.float32)
-    planes = [d9[j] for j in range(9)]
-    flipped = np.asarray(gk._dattr_contract(planes, idx, n))
-    rowform = np.asarray(gk._dattr_contract_rowform(planes, idx, n))
-    oracle = np.zeros((n, 9), np.float32)
-    np.add.at(oracle, np.asarray(idx), np.asarray(d9).T)
-    np.testing.assert_allclose(rowform, oracle, rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(flipped, rowform, rtol=2e-5, atol=2e-5)
+@pytest.mark.parametrize("skew", [False, True])
+def test_gather_rows_vjp_matches_scatter_add(skew):
+    # gather_rows sums its cotangents with a one-hot matrix product; the
+    # result must be the scatter-add autodiff of a plain gather, including
+    # when most rays pick the same row (the ground sphere).
+    from raytracingweekend_jl_tpu.ops.materials import gather_rows
+    table = jax.random.normal(jax.random.PRNGKey(1), (37, 9))
+    idx = jax.random.randint(jax.random.PRNGKey(2), (5000,), 0, 37)
+    if skew:
+        idx = jnp.where(jnp.arange(5000) % 5 == 0, idx, 3)
+    w = jax.random.normal(jax.random.PRNGKey(3), (5000, 9))
+    np.testing.assert_array_equal(np.asarray(gather_rows(table, idx)),
+                                  np.asarray(table[idx]))
+    g = jax.grad(lambda t: jnp.sum(gather_rows(t, idx) * w))(table)
+    g_ref = jax.grad(lambda t: jnp.sum(t[idx] * w))(table)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,f", [(1, 1), (37, 4), (488, 9)])
+def test_sum_rows_matches_float64_sums(n, f):
+    # sum_rows' per-sphere sums against float64 sums; spheres no ray picks
+    # stay exactly zero.
+    from raytracingweekend_jl_tpu.ops.materials import sum_rows
+    idx = jax.random.randint(jax.random.PRNGKey(4), (3000,), 0, max(n // 2, 1))
+    rows = jax.random.normal(jax.random.PRNGKey(5), (3000, f))
+    got = np.asarray(sum_rows(idx, rows, n))
+    ref = np.zeros((n, f))
+    np.add.at(ref, np.asarray(idx), np.asarray(rows, np.float64))
+    assert got.shape == (n, f) and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(got[max(n // 2, 1):], 0.0)
 
 
 def test_total_internal_reflection():

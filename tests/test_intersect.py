@@ -34,6 +34,34 @@ def oracle_hit(origin, direction, centers, radii, tmin=1e-4):
     return best_t, best_i
 
 
+def oracle_hit_batch(origins, dirs, centers, radii, tmin=1e-4):
+    """:func:`oracle_hit` vectorised over rays, float64: the same
+    shrinking-closest scan, one sphere at a time in list order. Returns
+    ``(t [R], index [R])`` with ``inf``/``-1`` for misses."""
+    o = np.asarray(origins, np.float64)
+    d = np.asarray(dirs, np.float64)
+    best_t = np.full(len(o), np.inf)
+    best_i = np.full(len(o), -1, np.int64)
+    for i, (c, r) in enumerate(zip(np.asarray(centers, np.float64),
+                                   np.asarray(radii, np.float64))):
+        if r == 0:
+            continue
+        oc = o - c
+        half_b = np.einsum("ij,ij->i", oc, d)
+        cc = np.einsum("ij,ij->i", oc, oc) - r * r
+        disc = half_b * half_b - cc
+        sq = np.sqrt(np.maximum(disc, 0.0))
+        near = -half_b - sq
+        far = -half_b + sq
+        near_bad = (near < tmin) | (near > best_t)
+        far_bad = (far < tmin) | (far > best_t)
+        root = np.where(near_bad, far, near)
+        take = (disc >= 0) & ~(near_bad & far_bad)
+        best_t = np.where(take, root, best_t)
+        best_i = np.where(take, i, best_i)
+    return best_t, best_i
+
+
 def random_scene_arrays(rng, n):
     centers = rng.uniform(-5, 5, (n, 3))
     radii = rng.uniform(0.2, 2.0, n) * rng.choice([1.0, -1.0], n)  # signed radii
@@ -144,3 +172,18 @@ def test_hollow_glass_scene_shell_selection():
     assert bool(res.hit[0])
     assert np.isclose(float(res.t[0]), 1.5, atol=1e-5)  # 2.0 - 0.5
     assert int(res.index[0]) == 2  # outer glass shell
+
+
+def test_batch_oracle_matches_scalar_oracle():
+    rng = np.random.default_rng(7)
+    centers, radii = random_scene_arrays(rng, 16)
+    radii[3] = 0.0  # padding sphere: skipped by both
+    origins = rng.uniform(-6, 6, (200, 3))
+    dirs = rng.normal(size=(200, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    bt, bi = oracle_hit_batch(origins, dirs, centers, radii)
+    for k in range(len(origins)):
+        et, ei = oracle_hit(origins[k], dirs[k], centers, radii)
+        assert bi[k] == ei, k
+        if ei >= 0:
+            assert abs(bt[k] - et) <= 1e-12 * max(1.0, abs(et)), k

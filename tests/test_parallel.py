@@ -114,30 +114,31 @@ def test_sharded_persistent_render():
     assert abs(img.mean() - ref.mean()) < 0.02
 
 
-def test_sharded_persistent_strided_dispatch(monkeypatch):
-    # The PRODUCTION multi-chip path: persistent tiles dispatch the STRIDED
-    # Pallas integrator (pixel_start per tile) inside shard_map. Forced into
-    # interpret mode so the exact TPU dispatch runs on the CPU mesh; compared
-    # statistically against the XLA persistent single-chip render.
-    monkeypatch.setenv("RTW_FORCE_STRIDED_INTERPRET", "1")
+@pytest.mark.parametrize("tiles,samples,exact", [(4, 1, True), (2, 2, False)])
+def test_sharded_persistent_matches_one_device(tiles, samples, exact):
+    # Global tile ids key the streams, so a tiles-only mesh is bitwise the
+    # 1x1 image; a samples axis only reorders the psum.
     scene = scene_2_spheres()
     cam = t_default_cam()
-    mesh = make_render_mesh(n_tiles=4, devices=jax.devices()[:4])
-    img = np.asarray(render_radiance_sharded(scene, cam, 48, 8, mesh=mesh,
-                                             tile_size=256, seed=2,
-                                             persistent=True))
-    ref = np.asarray(render_radiance(scene, cam, 48, 8, seed=2,
-                                     persistent=True))
-    assert img.shape == ref.shape == (27, 48, 3)
-    assert np.isfinite(img).all()
-    assert abs(img.mean() - ref.mean()) < 0.02
-    assert np.abs(img - ref).mean() < 0.06
+    kw = dict(tile_size=256, seed=2, persistent=True)
+    one = np.asarray(render_radiance_sharded(
+        scene, cam, 48, 8, mesh=make_render_mesh(1, 1, jax.devices()[:1]),
+        **kw))
+    many = np.asarray(render_radiance_sharded(
+        scene, cam, 48, 8,
+        mesh=make_render_mesh(tiles, samples, jax.devices()[:tiles * samples]),
+        **kw))
+    assert np.isfinite(many).all()
+    if exact:
+        np.testing.assert_array_equal(many, one)
+    else:
+        np.testing.assert_allclose(many, one, atol=1e-6)
 
 
-def test_sharded_train_step_fused_grad_mode():
-    # The kernel-pair gradient integrator dispatches under shard_map too
-    # (interpret mode on the CPU mesh): loss finite and gradients update the
-    # scene — covers the dispatch and the shard_map transpose composition.
+def test_sharded_train_step_recorded_grad_mode():
+    # The recorded gradient integrator under shard_map: loss finite and
+    # gradients update the scene — covers the shard_map transpose
+    # composition with the recorded custom VJP.
     scene = scene_4_spheres()
     cam = t_default_cam()
     mesh = make_render_mesh(n_tiles=4, n_samples=2)
@@ -145,19 +146,17 @@ def test_sharded_train_step_fused_grad_mode():
     bad = scene._replace(albedo=jnp.clip(scene.albedo * 0.7, 0, 1))
     loss, updated = sharded_train_step(bad, cam, target, 64, 2, mesh=mesh,
                                        lr=0.05, tile_size=256, seed=3,
-                                       grad_mode="fused")
+                                       grad_mode="recorded")
     assert np.isfinite(float(loss))
     assert not np.allclose(np.asarray(updated.albedo), np.asarray(bad.albedo))
 
 
-def test_auto_grad_mode_decision_table():
-    """sharded_train_step's default integrator mirrors resolve_grad_path:
-    XLA recorded on CPU; fixed-depth pair at typical shard tiles; the
-    persistent pair for >=2^17-pixel tiles (where its strip geometry pays:
-    13.9 vs 8.0 Mpaths/s at flagship widths)."""
-    from raytracingweekend_jl_tpu.parallel.shard import _auto_grad_mode
-    assert _auto_grad_mode("cpu", 1 << 20) == "recorded"
-    assert _auto_grad_mode("tpu", 8192) == "fused"
-    assert _auto_grad_mode("tpu", (1 << 17) - 1) == "fused"
-    assert _auto_grad_mode("tpu", 1 << 17) == "persist"
-    assert _auto_grad_mode("tpu", 1 << 21) == "persist"
+@pytest.mark.parametrize("mode", ["fused", "persist", None])
+def test_sharded_train_step_rejects_unknown_grad_mode(mode):
+    """The XLA recorded path is the only sharded gradient integrator."""
+    scene = scene_2_spheres()
+    cam = t_default_cam()
+    with pytest.raises(ValueError, match="grad_mode"):
+        sharded_train_step(scene, cam, jnp.zeros((9, 16, 3)), 16, 1,
+                           mesh=make_render_mesh(1, 1, jax.devices()[:1]),
+                           grad_mode=mode)

@@ -136,7 +136,7 @@ def test_hollow_glass_renders():
 
 
 def test_no_recompile_across_identical_renders():
-    # The TPU analog of the reference's zero-allocation contract tests
+    # The accelerator analog of the reference's zero-allocation contract tests
     # (test/runtests.jl:129-158): repeated renders of the same configuration
     # must not grow the compile cache (no per-call retraces).
     from raytracingweekend_jl_tpu.render import _render_chunk
@@ -150,9 +150,9 @@ def test_no_recompile_across_identical_renders():
 
 
 def test_f32_matches_f64_oracle_bounded():
-    # Precision contract (VERDICT r1 Missing #4): the reference benchmarks in
-    # Float64 end-to-end (src/proto/proto.jl:15); the TPU production path is
-    # f32. Two-part contract, since threefry consumes different bits per
+    # Precision contract: the reference benchmarks in Float64 end-to-end
+    # (src/proto/proto.jl:15); the production path is f32. Two-part
+    # contract, since threefry consumes different bits per
     # dtype (draw VALUES differ, so per-pixel comparison is only meaningful
     # where draws cannot steer the path):
     #
@@ -192,31 +192,48 @@ def test_f32_matches_f64_oracle_bounded():
     assert abs(h32.mean() - h64.mean()) < 5e-3  # stochastic: same integral
 
 
-def test_strided_dispatch_helpers():
-    from raytracingweekend_jl_tpu.render import (strided_k_for,
-                                                 strided_sample_groups_for,
-                                                 STRIDED_MIN_LANES)
-    # Full image: k capped at 64, no sample folding.
-    assert strided_k_for(1920 * 1080) == 63  # 2073600 // 32768
-    assert strided_sample_groups_for(1920 * 1080, 1000) == 1
-    # Small tiles: k collapses to 1 and the sample dimension folds to the
-    # largest divisor within ~4x the lane floor.
-    assert strided_k_for(8192) == 1
-    m = strided_sample_groups_for(8192, 8)
-    assert m == 8 and 8192 * m <= 4 * STRIDED_MIN_LANES * 8
-    assert strided_sample_groups_for(20000, 8) == 4
-    # Degenerate inputs stay sane.
-    assert strided_sample_groups_for(1, 1) == 1
-    assert strided_k_for(1) == 1
+@pytest.mark.parametrize("n_samples", [1, 4, 6])
+def test_persistent_render_matches_plain_statistically(n_samples):
+    # The persistent integrator (the production forward) estimates the same
+    # image as the plain wavefront: same mean radiance within Monte-Carlo
+    # noise (the two draw different streams).
+    scene = scene_2_spheres()
+    cam = t_default_cam()
+    a = np.asarray(render_radiance(scene, cam, 64, n_samples, seed=5,
+                                   persistent=True))
+    b = np.asarray(render_radiance(scene, cam, 64, n_samples, seed=5))
+    assert a.shape == b.shape == (36, 64, 3) and np.isfinite(a).all()
+    assert abs(a.mean() - b.mean()) < 0.03
+
+
+@pytest.mark.parametrize("env,expect", [
+    ({}, "default"),
+    ({"JAX_COMPILATION_CACHE_DIR": "/cache/jax"}, "/cache/jax"),
+    ({"JAX_COMPILATION_CACHE_DIR": ""}, "default"),
+    ({"RTW_NO_CACHE": "1"}, ""),
+    ({"RTW_NO_CACHE": "1", "JAX_COMPILATION_CACHE_DIR": "/c"}, ""),
+])
+def test_cache_dir_rule(env, expect):
+    import os
+    from raytracingweekend_jl_tpu.utils import cache
+    want = cache.DEFAULT_DIR if expect == "default" else expect
+    assert cache.cache_dir(env) == want
+    # The default is fixed inside the checkout: no temp, PID or time part.
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.DEFAULT_DIR == os.path.join(root, ".jax_cache")
 
 
 def test_compilation_cache_helper(tmp_path, monkeypatch):
-    import os
+    import jax
     from raytracingweekend_jl_tpu.utils import cache
     monkeypatch.delenv("RTW_NO_CACHE", raising=False)
-    monkeypatch.setenv("RTW_COMPILATION_CACHE", str(tmp_path / "xla"))
+    # An environment-provided directory is used as it is (JAX reads the
+    # variable itself); the code sets no other.
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "xla"))
+    before = jax.config.jax_compilation_cache_dir
     path = cache.enable_compilation_cache()
-    assert path.endswith("xla") and os.path.isdir(path)
+    assert path == str(tmp_path / "xla")
+    assert jax.config.jax_compilation_cache_dir == before
     assert cache.enable_compilation_cache() == path  # idempotent
     monkeypatch.setenv("RTW_NO_CACHE", "1")
     assert cache.enable_compilation_cache() == ""  # opt-out
